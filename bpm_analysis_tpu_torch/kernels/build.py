@@ -1,0 +1,59 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
+compiled on first use into ``<checkout>/.torch_build/<name>-<hash>.so``,
+keyed by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one loads at once.  The compiler writes to a temporary
+name that is renamed into place (``os.replace``): a build that is cut off
+leaves no half-written library and no lock behind.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+BUILD_TIMEOUT_S = 300
+
+_loaded: dict = {}      # name -> ctypes.CDLL
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use.  Raises
+    with nvcc's output if the build fails or exceeds its time limit."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    target = BUILD_DIR / f"{name}-{digest[:16]}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, target)
+    lib = _loaded[name] = ctypes.CDLL(str(target))
+    return lib
