@@ -220,14 +220,20 @@ class RuntimeConfig:
     # Compute dtype for the DSP/analytics path ("float32" on the card;
     # tests run "float64" on CPU for exact parity with the reference).
     dtype: str = "float32"
-    # Anchors per chunk of the plain knot-quantile version (bounds memory).
+    # Anchors per chunk of the plain strided and knot quantiles (bounds
+    # memory); the CUDA kernels ignore it.
     quantile_chunk: int = 1024
-    # Noise-floor quantile stride: 1 = exact pandas parity (not ported yet);
-    # >1 = strided anchors + linear interpolation.
+    # Noise-floor quantile stride: 1 = exact pandas parity (the wavelet-tree
+    # rank select, whatever the backend); >1 = strided anchors + linear
+    # interpolation.
     noise_quantile_stride: int = 1
-    # Strided-quantile backend: "auto" = the CUDA knot kernel for CUDA
-    # tensors and its plain version for CPU tensors; "knots" = the plain
-    # version on any device; "knots_pallas" = the kernel's wrapper, as auto.
+    # Strided-quantile backend (stride > 1; models/noise_floor.quantile_path):
+    # "auto" and "knots_pallas" = the knot domain on the CUDA knot kernel for
+    # CUDA tensors and its plain version for CPU tensors; "knots" = that plain
+    # version on any device; "pallas" (stride dividing 128) = the dense series
+    # on the CUDA strided-quantile kernel (its plain version for CPU
+    # tensors), in float32; anything else ("xla") = the dense strided
+    # quantile in the envelope's dtype.
     quantile_backend: str = "auto"
     # Work-buffer multiplier for the peak/trough finders: the intermediate
     # local-extrema population (before distance/prominence pruning) is
@@ -240,7 +246,9 @@ class RuntimeConfig:
     # Slots per classifier scan step in the JAX package; no effect here.
     classifier_unroll: int = 4
     # Prominence evaluation backend: "extrema" (and "auto") computes
-    # prominences in the extrema domain (ops/find_peaks.extrema_prominences).
+    # prominences in the extrema domain (ops/find_peaks.extrema_prominences);
+    # "dense" by sparse-table descents over the envelope, one table pair
+    # shared by the trough and raw-peak finders.  Same results.
     prominence_backend: str = "auto"
     # Extrema-sweep radius: nearest-taller searches within this many extrema
     # slots are resolved by shifted compares; peaks taller than their whole

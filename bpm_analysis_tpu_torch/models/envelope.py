@@ -3,9 +3,10 @@
 Port of ``bpm_analysis_tpu/models/envelope.py`` (reference
 ``preprocess_audio``, bpm_analysis.py:1007-1062): mono PCM → stride
 decimation → 2nd-order Butterworth band-pass 20-150 Hz (filtfilt) → abs →
-centered rolling mean of ``sr // 10`` samples.  Only the compat path
-(decimate before filtering, as the reference does) is ported; the antialias
-FIR path is ROADMAP.md queue A item 12.
+centered rolling mean of ``sr // 10`` samples.  The compat path decimates
+by striding before filtering, as the reference does;
+``compat.antialias_decimation=True`` decimates with the FIR low-pass
+``ops/filter.fir_decimate`` first (the north-star path).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from ..config import AnalyzerConfig
 from ..device import as_tensor, resolve_device
 from ..ops import rolling
-from ..ops.filter import bandpass_filtfilt
+from ..ops.filter import bandpass_filtfilt, fir_decimate
 from ..ops.indexing import arange, take
 
 
@@ -65,10 +66,6 @@ def preprocess(audio, sample_rate: int, cfg: AnalyzerConfig, n_valid=None,
     audio = as_tensor(audio, dev)
     if not audio.is_floating_point():
         raise TypeError(f"audio must be a floating tensor, got {audio.dtype}")
-    if cfg.compat.antialias_decimation:
-        raise NotImplementedError(
-            "antialias_decimation (fir_decimate) is not ported yet: "
-            "ROADMAP.md queue A item 12")
     factor = safe_downsample_factor(sample_rate, cfg)
     low = cfg.preprocess.bandpass_low_hz
     high = cfg.preprocess.bandpass_high_hz
@@ -79,13 +76,18 @@ def preprocess(audio, sample_rate: int, cfg: AnalyzerConfig, n_valid=None,
         keep = arange(audio.shape[1], audio)[None, :] < n_valid[:, None]
         audio = torch.where(keep, audio, torch.zeros_like(audio))
 
-    # Compat path: stride-decimate first (aliases above the new Nyquist fold
-    # in — reproducing bpm_analysis.py:1031-1045 exactly).
-    decimated = audio[:, ::factor] if factor > 1 else audio
     new_rate = sample_rate // factor if factor > 1 else sample_rate
-    if high >= 0.5 * new_rate:
-        raise ValueError(
-            f"Cannot create a {high:g}Hz filter: effective rate {new_rate}Hz too low")
+    if cfg.compat.antialias_decimation:
+        # North-star path: FIR anti-alias decimation, then the IIR band-pass
+        # at the decimated rate, where its poles are well-conditioned.
+        decimated = fir_decimate(audio, factor)
+    else:
+        # Compat path: stride-decimate first (aliases above the new Nyquist
+        # fold in — reproducing bpm_analysis.py:1031-1045 exactly).
+        decimated = audio[:, ::factor] if factor > 1 else audio
+        if high >= 0.5 * new_rate:
+            raise ValueError(
+                f"Cannot create a {high:g}Hz filter: effective rate {new_rate}Hz too low")
 
     if not masked:
         filtered = bandpass_filtfilt(decimated, new_rate, low, high, order)

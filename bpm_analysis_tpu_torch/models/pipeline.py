@@ -52,20 +52,27 @@ class PipelineResult(NamedTuple):
 
 
 def raw_peaks(envelope: torch.Tensor, floor: torch.Tensor, sample_rate: int,
-              cfg: AnalyzerConfig, n_valid=None, extrema=None) -> fp.Peaks:
-    """``PeakClassifier._find_raw_peaks`` (bpm_analysis.py:223-229) on the
-    shared extrema decomposition: the height filter applies to the candidate
-    maxima, which are then compacted for the distance NMS."""
-    if extrema is None:
-        raise NotImplementedError(
-            "the dense prominence backend is not ported yet: ROADMAP.md "
-            "queue A item 12")
+              cfg: AnalyzerConfig, n_valid=None, env_tables=None,
+              extrema=None) -> fp.Peaks:
+    """``PeakClassifier._find_raw_peaks`` (bpm_analysis.py:223-229), height
+    = the noise floor.  With the shared ``extrema`` decomposition the height
+    filter applies to its candidate maxima, which are then compacted for the
+    distance NMS; otherwise the dense finder runs on the edge-held envelope
+    with its shared ``env_tables`` (built here when None)."""
     valid, env_m = envm.edge_held(envelope, n_valid)
     prom = quantile_ops.quantile_exact(envelope, cfg.features.peak_prominence_quantile,
                                        valid=valid)
     n = envelope.shape[1]
     dist = int(cfg.features.min_peak_distance_sec * sample_rate)
     cap = min(cfg.runtime.max_raw_peaks, fp.distance_capacity_bound(n, dist))
+    common = dict(
+        prominence=prom, distance=dist,
+        work_capacity=cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks,
+        prominence_capacity=int(cfg.runtime.prominence_work_factor * cap))
+    if extrema is None:
+        tables = {} if env_tables is None else dict(max_table=env_tables[0],
+                                                    min_table=env_tables[1])
+        return fp.find_peaks(env_m, cap, height=floor, **common, **tables)
     mh_real = extrema.max_heights[:, 1:-1]
     floor_at = take(floor, torch.clamp(extrema.max_positions.long(), 0, n - 1))
     in_count = arange(mh_real.shape[1], envelope)[None, :] < extrema.max_count.long()[:, None]
@@ -74,9 +81,7 @@ def raw_peaks(envelope: torch.Tensor, floor: torch.Tensor, sample_rate: int,
     (cpos, chts), ccount, cover = fp.compact_slots(
         keep, ccap, [(extrema.max_positions, n), (mh_real, float("-inf"))])
     return fp.find_peaks(
-        env_m, cap, prominence=prom, distance=dist,
-        work_capacity=cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks,
-        prominence_capacity=int(cfg.runtime.prominence_work_factor * cap),
+        env_m, cap, **common,
         extrema=extrema, extrema_negated=False,
         candidates=fp.Peaks(cpos, ccount, cover | extrema.overflowed),
         priorities=chts,
@@ -123,24 +128,30 @@ def analyze_envelope(envelope: torch.Tensor, sample_rate: int, cfg: AnalyzerConf
     """Full pipeline (stages 1b-6) over a batch of envelopes (B, n) on their
     device.  ``n_valid`` (B,) marks each row's valid prefix of a zero-padded
     batch: every result equals the run on ``envelope[b, :n_valid[b]]``."""
-    if cfg.runtime.prominence_backend == "dense":
-        raise NotImplementedError(
-            "prominence_backend='dense' is not ported yet: ROADMAP.md queue A item 12")
     dtype = envelope.dtype
     bsz, n = envelope.shape
     start_bpm_hints = start_bpm_hints.to(dtype)
 
-    # Extrema of the edge-held envelope, shared by the trough finder (on
-    # -env: roles swap) and the raw-peak finder.
+    # Peak-finder auxiliaries of the edge-held envelope, built once and
+    # shared by the trough finder (on -env: roles swap and comparisons
+    # negate) and the raw-peak finder: the extrema decomposition (default),
+    # or the dense sparse-table pair (prominence_backend="dense").
     _, env_m = envm.edge_held(envelope, n_valid)
-    extrema = fp.build_extrema(
-        env_m, cfg.runtime.extrema_capacity
-        or cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks)
+    if cfg.runtime.prominence_backend == "dense":
+        env_tables = (fp._sparse_table(env_m, torch.maximum),
+                      fp._sparse_table(env_m, torch.minimum))
+        extrema = None
+    else:
+        env_tables = None
+        extrema = fp.build_extrema(
+            env_m, cfg.runtime.extrema_capacity
+            or cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks)
 
     nf = noise_floor.dynamic_noise_floor(envelope, sample_rate, cfg,
-                                         n_valid=n_valid, extrema=extrema)
+                                         n_valid=n_valid, env_tables=env_tables,
+                                         extrema=extrema)
     peaks = raw_peaks(envelope, nf.floor, sample_rate, cfg, n_valid=n_valid,
-                      extrema=extrema)
+                      env_tables=env_tables, extrema=extrema)
 
     start_bpm, peak_time, recovery_end = preliminary_pass(
         envelope, nf.floor, peaks, sample_rate, start_bpm_hints, cfg)

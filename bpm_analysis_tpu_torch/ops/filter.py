@@ -6,7 +6,8 @@ side is the same block-affine formulation of the IIR recurrence
 ``s[n] = A s[n-1] + B x[n]``: split the signal into length-``L`` blocks; the
 in-block output is one Toeplitz matmul plus a rank-``m`` carry-in term, and
 the block carries compose through a length-``nb`` affine scan — here a
-Python loop over blocks, vectorized over the batch.
+Python loop over blocks, vectorized over the batch.  :func:`fir_decimate`
+is the antialias decimator of the north-star preprocessing path.
 
 Products stay full float32 on the card: the float32 matmuls below rely on
 ``torch.backends.cuda.matmul.allow_tf32`` being False (PyTorch's default);
@@ -193,3 +194,39 @@ def bandpass_filtfilt(x: torch.Tensor, fs: float, low_hz: float, high_hz: float,
     if n_valid is None:
         return filtfilt(b, a, x)
     return filtfilt_masked(b, a, x, n_valid)
+
+
+def fir_decimate(x: torch.Tensor, factor: int, taps_per_phase: int = 8) -> torch.Tensor:
+    """Anti-aliased decimation of each row of ``x`` (B, N): a Hann-windowed
+    sinc low-pass at 90% of the new Nyquist, evaluated only at the kept
+    samples.  Returns (B, ceil(N / factor)).
+
+    Polyphase form, as in the JAX package: with the tap index k = j*factor
+    + p the strided convolution is one (M, factor) @ (factor, J) product
+    ``Y = X @ Hp`` (``X[m, p] = xp[m*factor + p]``, ``Hp[p, j] =
+    h[j*factor + p]``) plus J shifted column adds, ``y[m] = sum_j Y[m + j,
+    j]``.  The product is a plain ``torch.matmul`` in the input's dtype
+    (full float32 on the card: TF32 matmuls stay off)."""
+    if factor <= 1:
+        return x
+    half = taps_per_phase * factor // 2
+    n_taps = 2 * half + 1
+    t = np.arange(n_taps) - half
+    cutoff = 0.9 / factor  # fraction of the input Nyquist
+    h = np.sinc(cutoff * t) * cutoff
+    h *= np.hanning(n_taps)
+    h /= h.sum()
+
+    bsz, n = x.shape
+    out_len = -(-n // factor)
+    n_phases = -(-n_taps // factor)  # J
+    hp = np.zeros((n_phases, factor), dtype=h.dtype)
+    hp.flat[:n_taps] = h
+    m_rows = out_len + n_phases - 1
+    xp = torch.nn.functional.pad(x, (half, m_rows * factor - n - half))
+    hpt = torch.as_tensor(np.ascontiguousarray(hp.T), dtype=x.dtype, device=x.device)
+    y2 = torch.matmul(xp.reshape(bsz, m_rows, factor), hpt)     # (B, M, J)
+    res = y2[:, 0:out_len, 0]
+    for j in range(1, n_phases):
+        res = res + y2[:, j:j + out_len, j]
+    return res

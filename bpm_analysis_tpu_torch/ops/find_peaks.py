@@ -1,10 +1,11 @@
 """scipy.signal.find_peaks semantics over (B, n) tensors, fixed capacity.
 
-Port of ``bpm_analysis_tpu/ops/find_peaks.py`` restricted to the main path:
-the shared extrema decomposition and its extrema-domain prominences (the
-trough and raw-peak finders), plus the dense sparse-table prominences that
-the BPM-curve slope search runs on its short series.  Semantics, as in the
-JAX package:
+Port of ``bpm_analysis_tpu/ops/find_peaks.py``: the shared extrema
+decomposition and its extrema-domain prominences (the default trough and
+raw-peak finders), and the dense sparse-table prominences (the
+``prominence_backend="dense"`` finders, which share one table pair, and the
+BPM-curve slope search on its short series).  Semantics, as in the JAX
+package:
 
 * local maxima use strict neighbors with plateau support — a flat top emits
   one peak at ``(left_edge + right_edge) // 2``,
@@ -204,18 +205,36 @@ def _first_above(max_table: torch.Tensor, v: torch.Tensor, l: torch.Tensor,
 
 
 def peak_prominences(x: torch.Tensor, positions: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, max_table: Optional[torch.Tensor] = None,
+                     min_table: Optional[torch.Tensor] = None,
+                     tables_negated: bool = False) -> torch.Tensor:
     """Prominence of each valid peak position (B, q), scipy ``wlen=None``,
-    via sparse-table descents over the dense signal (short series only)."""
+    via sparse-table descents over the dense signal.
+
+    ``max_table``/``min_table``: precomputed (B, L, n) tables of ``x``, or
+    with ``tables_negated=True`` of ``-x`` (the trough finder on ``-env``
+    reusing the envelope's pair): descents then flip their comparisons and
+    range results flip sign, so no table is negated."""
     n = x.shape[1]
-    max_table = _sparse_table(x, torch.maximum)
-    min_table = _sparse_table(x, torch.minimum)
+    if max_table is None or min_table is None:
+        max_table = _sparse_table(x, torch.maximum)
+        min_table = _sparse_table(x, torch.minimum)
+        tables_negated = False
     p = torch.clamp(positions.long(), 0, n - 1)
     v = take(x, p)
-    lb = _last_above(max_table, v, p) + 1
-    rb = _first_above(max_table, v, p) - 1
-    left_min = _range_query(min_table, torch.clamp(lb, min=0), p, torch.minimum)
-    right_min = _range_query(min_table, p, torch.clamp(rb, max=n - 1), torch.minimum)
+    if tables_negated:
+        # max of x over a block == -(min of -x); min of x == -(max of -x).
+        lb = _last_above(min_table, -v, p, flip=True) + 1
+        rb = _first_above(min_table, -v, p, flip=True) - 1
+        left_min = -_range_query(max_table, torch.clamp(lb, min=0), p, torch.maximum)
+        right_min = -_range_query(max_table, p, torch.clamp(rb, max=n - 1),
+                                  torch.maximum)
+    else:
+        lb = _last_above(max_table, v, p) + 1
+        rb = _first_above(max_table, v, p) - 1
+        left_min = _range_query(min_table, torch.clamp(lb, min=0), p, torch.minimum)
+        right_min = _range_query(min_table, p, torch.clamp(rb, max=n - 1),
+                                 torch.minimum)
     prom = v - torch.maximum(left_min, right_min)
     return torch.where(valid, prom, torch.zeros_like(prom))
 
@@ -515,6 +534,7 @@ def _recompact(pos: torch.Tensor, keep: torch.Tensor, n: int):
 def find_peaks(
     x: torch.Tensor,
     capacity: int,
+    height=None,
     prominence=None,
     distance=None,
     work_capacity: Optional[int] = None,
@@ -525,15 +545,22 @@ def find_peaks(
     prominence_residual_capacity: int = 2048,
     candidates: Optional[Peaks] = None,
     priorities: Optional[torch.Tensor] = None,
+    max_table: Optional[torch.Tensor] = None,
+    min_table: Optional[torch.Tensor] = None,
+    tables_negated: bool = False,
 ) -> Peaks:
-    """scipy.signal.find_peaks(x[r], prominence=..., distance=...) for every
-    row of ``x`` (B, n), with fixed output capacity.
+    """scipy.signal.find_peaks(x[r], height=..., prominence=...,
+    distance=...) for every row of ``x`` (B, n), with fixed output capacity.
 
-    ``prominence``: scalar or (B,); ``distance``: static number or (B,).
+    ``height``: scalar, (B,) or a per-sample (B, n) threshold evaluated at
+    the peak positions (the raw-peak finder's noise floor); ``prominence``:
+    scalar or (B,); ``distance``: static number or (B,).
     ``candidates``/``priorities``: pre-compacted candidate maxima from a
     shared :class:`Extrema` (height already applied), replacing the dense
     local-maxima mask.  ``extrema``: prominences in the extrema domain
-    instead of dense sparse tables.  ``work_capacity`` bounds the candidate
+    instead of dense sparse tables; ``max_table``/``min_table``
+    (``tables_negated``): shared dense tables for ``peak_prominences``.
+    ``work_capacity`` bounds the candidate
     population and ``prominence_capacity`` the prominence slot axis; both
     truncate with the overflow flag set."""
     bsz, n = x.shape
@@ -543,7 +570,11 @@ def find_peaks(
         prio_arr = priorities
     else:
         work_capacity = work_capacity or 4 * capacity
-        peaks = _compact_mask(local_maxima_mask(x), work_capacity)
+        mask = local_maxima_mask(x)
+        if height is not None:
+            h = torch.as_tensor(height, dtype=x.dtype, device=x.device)
+            mask = mask & (x >= (h[:, None] if h.dim() == 1 else h))
+        peaks = _compact_mask(mask, work_capacity)
         prio_arr = None
     slot = arange(work_capacity, x)[None, :]
     valid = slot < peaks.count.long()[:, None]
@@ -577,7 +608,9 @@ def find_peaks(
                 residual_capacity=prominence_residual_capacity)
             truncated = truncated | prom_ovf
         else:
-            prom = peak_prominences(x, pos, valid)
+            prom = peak_prominences(x, pos, valid, max_table=max_table,
+                                    min_table=min_table,
+                                    tables_negated=tables_negated)
         thr = torch.as_tensor(prominence, dtype=x.dtype, device=x.device)
         if thr.dim() == 1:
             thr = thr[:, None]

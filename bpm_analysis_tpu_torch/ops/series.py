@@ -1,10 +1,10 @@
 """Sparse-series primitives over fixed-capacity (B, cap) arrays.
 
-Port of the main-path parts of ``bpm_analysis_tpu/ops/series.py``: stable
-compaction, ``asof`` lookups, masked quantiles, and the forward/backward
-fills of (value, valid) pairs (``lax.associative_scan`` in the JAX package;
-a ``cummax`` over the index of the last valid entry here).  The dense
-``interpolate_dense`` belongs to the stride-1 floor (ROADMAP.md A11).
+Port of ``bpm_analysis_tpu/ops/series.py``: stable compaction, the dense
+piecewise-linear ``interpolate_dense`` of knot series, ``asof`` lookups,
+masked quantiles, and the forward/backward fills of (value, valid) pairs
+(``lax.associative_scan`` in the JAX package; a ``cummax`` over the index
+of the last valid entry here).
 """
 from __future__ import annotations
 
@@ -39,6 +39,94 @@ def compact_valid(idx: torch.Tensor, valid: torch.Tensor, fill: int):
     write = torch.where(valid, rank1 - 1, n + 1)
     compacted = scatter_drop(n, write, idx, fill, idx.dtype)
     return compacted, rank1[:, -1].to(torch.int32)
+
+
+def interpolate_dense(knot_pos: torch.Tensor, knot_val: torch.Tensor,
+                      count: torch.Tensor, n: int, dtype=torch.float32,
+                      min_spacing=None) -> torch.Tensor:
+    """Dense piecewise-linear interpolation (B, n) of each row's knots,
+    ``pd.Series(val, index=pos).reindex(arange(n)).interpolate()``: linear
+    between knots, NaN before the first knot, the last value after the last.
+
+    ``knot_pos`` (B, cap) holds each row's sorted positions in its first
+    ``count`` (B,) slots.  ``min_spacing`` (static) asserts adjacent knots
+    are at least that far apart (trough series are, by the distance NMS)
+    and selects the block form: the last knot at or before each 128-sample
+    block start, then the <= K+2 knots that can bracket the block's samples
+    (K bounded by the spacing), resolved by broadcast compares; otherwise a
+    ``searchsorted`` over the whole grid."""
+    bsz, cap = knot_pos.shape
+    dev = knot_pos.device
+    cnt = count.long()[:, None]
+    slot = arange(cap, knot_pos)[None, :]
+    kvalid = slot < cnt
+    pos = torch.where(kvalid, torch.clamp(knot_pos.long(), 0, n - 1), 0)
+    val = torch.where(kvalid, knot_val, torch.zeros_like(knot_val)).to(dtype)
+    pos_sorted = torch.where(kvalid, pos, n)          # padded tail: n
+    nan = float("nan")
+
+    if min_spacing is None or min_spacing < 1:
+        grid = arange(n, knot_pos)[None, :].expand(bsz, n).contiguous()
+        # j = index of the last knot at or before each grid position.
+        j = torch.searchsorted(pos_sorted.contiguous(), grid, right=True) - 1
+        has_next = (j + 1) < cnt
+        j0 = torch.clamp(j, 0, cap - 1)
+        p0, v0 = take(pos_sorted, j0), take(val, j0)
+        j1 = torch.clamp(j + 1, 0, cap - 1)
+        p1 = torch.where(has_next, take(pos_sorted, j1), p0)
+        v1 = torch.where(has_next, take(val, j1), v0)
+        denom = torch.clamp(p1 - p0, min=1).to(dtype)
+        frac = (grid - p0).to(dtype) / denom
+        out = v0 + frac * (v1 - v0)            # past the last knot: frac*(0)
+        out = torch.where(j >= 0, out, torch.full_like(out, nan))
+        return torch.where(cnt > 0, out, torch.full_like(out, nan))
+
+    S = 128
+    K = (S - 1) // min_spacing + 2         # knots possibly inside one block
+    nc = K + 2                              # candidates m = 0..K+1
+    nb = -(-n // S)
+    # jb[b] = last knot at or before block start b*S: seed block
+    # ceil(pos/S) with the knot's index (max-combining; knots past the last
+    # block start drop) and carry the max across blocks.
+    b_first = -(-pos_sorted // S)
+    seed = torch.full((bsz, nb + 1), -1, dtype=torch.int64, device=dev)
+    seed.scatter_reduce_(1, torch.clamp(b_first, max=nb),
+                         torch.where(kvalid, slot.expand(bsz, cap), -1), reduce="amax")
+    jb = torch.cummax(seed[:, :nb], dim=1).values
+    starts = torch.arange(nb, device=dev) * S
+
+    m = torch.arange(nc, device=dev)
+    cand = jb[:, :, None] + m                                # (B, nb, nc) knot slots
+    cvalid = (cand >= 0) & (cand < cnt[:, :, None])
+    candc = torch.clamp(cand, 0, cap - 1).reshape(bsz, -1)
+    cpos = torch.where(cvalid, take(pos_sorted, candc).reshape(cand.shape), n)
+    cval = torch.where(cvalid, take(val, candc).reshape(cand.shape),
+                       torch.zeros((), dtype=dtype, device=dev))
+
+    i = starts[:, None] + torch.arange(S, device=dev)[None, :]   # (nb, S)
+    # Of the candidates m >= 1, how many knots are <= i: j(i) = jb + inc.
+    le = (cpos[:, :, None, :] <= i[None, :, :, None]) & (m >= 1)
+    inc = le.sum(dim=-1)                                    # (B, nb, S)
+    j = jb[:, :, None] + inc
+
+    def pick(sel):  # candidate ``sel`` of each block; 0 past the last one
+        in_range = sel < nc
+        selc = torch.clamp(sel, max=nc - 1)
+        p = torch.where(in_range, torch.gather(cpos, 2, selc), 0)
+        v = torch.where(in_range, torch.gather(cval, 2, selc),
+                        torch.zeros((), dtype=dtype, device=dev))
+        return p, v
+
+    p0, v0 = pick(inc)
+    has_next = (j + 1) < cnt[:, :, None]
+    p1n, v1n = pick(inc + 1)
+    p1 = torch.where(has_next, p1n, p0)
+    v1 = torch.where(has_next, v1n, v0)
+    denom = torch.clamp(p1 - p0, min=1).to(dtype)
+    frac = (i - p0).to(dtype) / denom
+    out = v0 + frac * (v1 - v0)
+    out = torch.where((j >= 0) & (cnt[:, :, None] > 0), out, torch.full_like(out, nan))
+    return out.reshape(bsz, nb * S)[:, :n]
 
 
 def asof(index: torch.Tensor, values: torch.Tensor, count: torch.Tensor,
