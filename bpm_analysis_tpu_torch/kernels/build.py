@@ -5,7 +5,9 @@ compiled on first use into ``<checkout>/.torch_build/<name>-<hash>.so``,
 keyed by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one loads at once.  The compiler writes to a temporary
 name that is renamed into place (``os.replace``): a build that is cut off
-leaves no half-written library and no lock behind.
+leaves no half-written library and no lock behind.  ``-Xptxas -v`` makes
+ptxas report each kernel's registers, shared memory and spills;
+``resources`` keeps those lines of the builds this process ran.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 BUILD_TIMEOUT_S = 300
 
 _loaded: dict = {}      # name -> ctypes.CDLL
+resources: dict = {}    # name -> ptxas's resource lines of this process's build
 
 
 def _nvcc() -> str:
@@ -55,5 +58,7 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, target)
+        resources[name] = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+                           if "registers" in line or "spill" in line]
     lib = _loaded[name] = ctypes.CDLL(str(target))
     return lib

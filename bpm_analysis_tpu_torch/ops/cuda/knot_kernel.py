@@ -32,6 +32,9 @@ def _library():
             i32, i32, i32, i32, i32, i32, i32, i32,      # batch .. nseg
             ctypes.c_float, i32, ptr]                    # q, min_periods, stream
         lib.knot_quantile_anchors.restype = i32
+        lib.knot_quantile_check_division.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_uint, ptr, ptr]  # n, seed, mismatches, stream
+        lib.knot_quantile_check_division.restype = i32
         lib.knot_quantile_error_string.argtypes = [i32]
         lib.knot_quantile_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -95,3 +98,17 @@ def knot_quantile_anchors(
     global launches
     launches += 1
     return out
+
+
+def division_mismatches(n_pairs: int, seed: int = 0) -> int:
+    """How many of ``n_pairs`` pseudo-random operand pairs in the kernel's
+    fast-division range give a quotient that differs from IEEE division
+    (div.rn.f32) on the card; the kernel is bit-equal only if this is 0."""
+    mismatches = torch.zeros(1, dtype=torch.int64, device="cuda")
+    lib = _library()
+    stream = torch.cuda.current_stream(mismatches.device).cuda_stream
+    rc = lib.knot_quantile_check_division(n_pairs, seed, mismatches.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.knot_quantile_error_string(rc).decode()
+        raise RuntimeError(f"knot_quantile division check failed: {msg} ({rc})")
+    return int(mismatches.item())

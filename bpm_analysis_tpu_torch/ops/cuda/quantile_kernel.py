@@ -22,7 +22,7 @@ launches = 0
 _lib = None
 
 INF_BITS = 0x7F800000    # +inf: raw bits at or above it are missing
-MAX_WINDOW = 1024 * 24   # the kernel's largest block times its keys per thread
+MAX_WINDOW = 1024 * 24   # the widest window the kernel takes
 
 
 def _library():

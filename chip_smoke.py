@@ -9,12 +9,17 @@ the seconds since start:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: both CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
    parallel, with each build's time;
-3. each kernel vs its plain version on the card: the knot-quantile kernel
-   against ``ops/knot_quantile.rolling_quantile_knots`` on the cases of
-   tests/test_knot_kernel.py and engine-shaped knots; the strided-quantile
-   kernel against ``ops/cuda/quantile_kernel.plain_anchors`` on the cases of
-   tests/test_pallas_quantile.py, a masked tail, a short row, windows
-   that need 8 and 32 warps, and engine-shaped series;
+3. each kernel vs its plain version on the card: the knot kernel's fast
+   division against IEEE division over 2^30 operand pairs; the
+   knot-quantile kernel against ``ops/knot_quantile.rolling_quantile_knots``
+   on the cases of tests/test_knot_kernel.py, knots 2-5 samples apart (more
+   segments a window than a lane group holds in registers), all-flat knots
+   and engine-shaped knots; the strided-quantile kernel against
+   ``ops/cuda/quantile_kernel.plain_anchors`` on the cases of
+   tests/test_pallas_quantile.py, a masked tail, a short row, windows of
+   6037 and 24575 keys, the tiled design's edges (a ragged last tile, a row
+   shorter than one tile, all-equal and all-missing windows, heavy ties,
+   keys on both sides of a 24-bit prefix boundary) and engine-shaped series;
 4. the main path at full width: 16 ten-minute recordings (302 Hz,
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
    at float32, stride 64, ``quantile_backend="auto"``; launch counts,
@@ -90,6 +95,7 @@ PEAK_ISSUE_OPS = 132 * 128 * 1.98e9
 OPS_DIGIT_ROUND, DIGIT_ROUNDS, OPS_KEY_ONCE = 3, 4, 1
 OPS_ANCHOR = DIGIT_ROUNDS * 256 * 2
 STRIDED_RTOL = 1e-6     # tests/test_pallas_quantile.py:26
+DIVISION_PAIRS = 1 << 28
 VULPINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
                        "vulpine_oracle.npz")
 
@@ -162,6 +168,35 @@ def kernel_cases():
     val[:len(pos)] = np.abs(rng.randn(len(pos))).astype(np.float32) * 120
     cases.append(("first_knot_past_zero", full[None], val[None],
                   np.array([len(pos)], np.int32), 6000, 603, 8, 30, None))
+    # Windows that meet more segments (~120-300) than one lane group holds
+    # in registers (8 lanes x 7): knots 2-5 samples apart, window 603.
+    rng = np.random.RandomState(13)
+    ps, vs, cs = [], [], []
+    for count in (700, 420):
+        p = np.full(768, 2400, np.int32)
+        pos = np.cumsum(rng.randint(2, 6, size=count)) - 2
+        pos = pos[pos < 2400]
+        p[:len(pos)] = pos
+        v = np.zeros(768, np.float32)
+        v[:len(pos)] = np.abs(rng.randn(len(pos))).astype(np.float32) * 40
+        v[:len(pos):5] = np.round(v[:len(pos):5])
+        ps.append(p)
+        vs.append(v)
+        cs.append(len(pos))
+    cases.append(("dense_knots_w603", np.stack(ps), np.stack(vs), np.array(cs, np.int32),
+                  2400, 603, 8, 2, np.array([2400, 2000], np.int32)))
+    # All-flat knots: every segment constant, one value per row.
+    rng = np.random.RandomState(17)
+    ps, cs = [], []
+    for count in (60, 25):
+        p, _, c = random_knots(rng, 4000, 64, 40, count)
+        ps.append(p)
+        cs.append(c)
+    flat = np.zeros((2, 64), np.float32)
+    flat[0, :cs[0]] = 12.5
+    flat[1, :cs[1]] = 3.0
+    cases.append(("all_flat", np.stack(ps), flat, np.array(cs, np.int32), 4000, 603, 8, 40,
+                  None))
     # Engine shapes: B=16, cap=2560, n=181200, window 3020, spacing 15.
     rng = np.random.RandomState(11)
     n, cap = 181200, 2560
@@ -186,8 +221,10 @@ def kernel_cases():
 def strided_kernel_cases():
     """(name, x, window, stride, q, min_periods) for the strided-quantile
     kernel: the cases of tests/test_pallas_quantile.py, a masked tail, a row
-    shorter than one window, the kernel's 256- and 1024-thread blocks, and
-    engine-shaped series."""
+    shorter than one window, windows of 6037 and 24575 keys, the tiled
+    design's edges (a ragged last tile, a row shorter than one tile,
+    all-equal and all-missing windows, heavy ties at v_lo, keys on both
+    sides of a 24-bit prefix boundary), and engine-shaped series."""
     rng = np.random.RandomState(0)
     x = np.abs(rng.randn(2, 3000).astype(np.float32)) * 100
     x[0, :40] = np.nan
@@ -205,6 +242,28 @@ def strided_kernel_cases():
     wide[1, 27000:] = np.nan
     cases.append(("wide_w6037", wide, 6037, 64, 0.3, 3))
     cases.append(("widest_w24575", wide, 24575, 128, 0.2, 3))
+    # The tiled design's edges: 125 anchors a row (not a multiple of the
+    # 16-anchor tile), a row of 10 anchors (shorter than one tile), a window
+    # of all-equal keys, an all-missing stretch longer than a window.
+    edge = np.random.RandomState(19)
+    ragged = np.abs(edge.randn(2, 1000).astype(np.float32)) * 30
+    ragged[0, 300:700] = 7.25                   # all-equal windows
+    ragged[1, 200:600] = np.nan                 # all missing, longer than a window
+    cases.append(("ragged_tile_w301", ragged, 301, 8, 0.3, 3))
+    cases.append(("row_shorter_than_tile", ragged[:, :40].copy(), 61, 4, 0.5, 3))
+    # Heavy ties at v_lo: a few integer levels, so v_lo's round-4 bin holds
+    # many keys.
+    ties = edge.randint(0, 4, size=(2, 3000)).astype(np.float32)
+    ties[1, ::3] = np.nan
+    cases.append(("ties_at_v_lo", ties, 603, 8, 0.35, 3))
+    # Keys that share one 24-bit prefix (row 0: v_hi from round 4's next
+    # non-empty bin) and keys whose low byte is 0xFF (row 1: v_lo's bin is
+    # the last with its prefix, so v_hi needs the min pass over the keys).
+    bits = np.stack([0x42C80000 | edge.randint(0, 256, size=2000),
+                     ((0x42C800 + edge.randint(0, 64, size=2000)) << 8) | 0xFF])
+    pattern = bits.astype(np.uint32).view(np.float32)
+    pattern[:, ::9] = np.nan
+    cases.append(("prefix_boundary", pattern, 301, 4, 0.45, 3))
     # Engine shapes: a smooth positive trough-interpolation-like series per
     # row, NaN before the first trough, ties from rounding.
     n = 181200
@@ -621,8 +680,16 @@ def main() -> int:
     quantile_kernel._library()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
+    from bpm_analysis_tpu_torch.kernels import build
+    for name in builds:
+        log(f"  ptxas {name}: " + ("; ".join(build.resources.get(name, []))
+                                   or "cached library, not built in this run"))
 
     # ---- 3. kernels vs plain versions on the card --------------------------
+    mismatches = sum(knot_kernel.division_mismatches(DIVISION_PAIRS, seed) for seed in range(4))
+    log(f"  knot kernel's fast division vs IEEE division: {mismatches} of "
+        f"{4 * DIVISION_PAIRS} operand pairs differ")
+    check(mismatches == 0, "the knot kernel's fast division differs from IEEE division")
     knot_err = check_knot_cases(dev)
     strided_err = check_strided_cases(dev)
     log(f"phase 3 kernels vs plain: ok (knot rtol {RTOL} atol {ATOL}; strided rtol "

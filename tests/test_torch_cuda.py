@@ -39,6 +39,15 @@ def test_cuda_kernel_matches_plain_version(case):
 
 
 @pytest.mark.gpu
+def test_knot_kernel_fast_division_equals_ieee_division():
+    """The knot kernel's hoisted-reciprocal division gives div.rn.f32's
+    quotient bit for bit over its operand range (2^28 pseudo-random pairs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert knot_kernel.division_mismatches(1 << 28, seed=1) == 0
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -5,7 +5,11 @@
 ``analyze_batch``, with both prominence backends, held to the checks of
 tests/test_pipeline_golden.py::test_pipeline_stage_outputs and
 ::test_pipeline_classifications, and the noise floor to the oracle's at
-tests/test_noise_floor.py's rtol 1e-9.
+tests/test_noise_floor.py's rtol 1e-9.  The metrics of the float64 run are
+held to the oracle's series (rtol 1e-9), to the summary constants of
+::test_pipeline_summary_metrics and to the golden HRR of
+tests/test_analytics.py::test_hrr_compat_truncated_interp; the float32 run
+to ::test_pipeline_float32's beat F1.
 """
 import dataclasses
 
@@ -53,3 +57,61 @@ def test_vulpine_golden_port_only(oracle, prominence_backend):
     np.testing.assert_array_equal(res.trough_positions.numpy()[0, :k],
                                   oracle["sanitized_troughs"])
     np.testing.assert_allclose(res.floor.numpy()[0], oracle["noise_floor"], rtol=1e-9)
+
+
+def _run_default(oracle, dtype):
+    sr = int(oracle["sample_rate"])
+    x = torch.from_numpy(oracle["raw_signal"].astype(dtype))[None]
+    return tpipe.analyze_batch(tenv.envelope_from_filtered(x, sr), sr, tcfg.DEFAULT_CONFIG,
+                               device="cpu")
+
+
+@pytest.fixture(scope="module")
+def metrics64(oracle):
+    return _run_default(oracle, np.float64).metrics
+
+
+def test_vulpine_golden_bpm_and_hrv_series(oracle, metrics64):
+    """The BPM curve and the HRV windows of the port's own beats, float64,
+    against the oracle's series at rtol 1e-9."""
+    m = metrics64
+    count = int(m.bpm.count[0])
+    assert count == len(oracle["bpm_times"])
+    np.testing.assert_allclose(m.bpm.times.numpy()[0, :count], oracle["bpm_times"],
+                               rtol=1e-9)
+    np.testing.assert_allclose(m.bpm.smoothed.numpy()[0, :count], oracle["smoothed_bpm"],
+                               rtol=1e-9)
+    count = int(m.hrv.count[0])
+    assert count == len(oracle["hrv_time"])
+    for field in ("time", "rmssdc", "sdnn", "bpm"):
+        np.testing.assert_allclose(getattr(m.hrv, field).numpy()[0, :count],
+                                   oracle[f"hrv_{field}"], rtol=1e-9, err_msg=field)
+
+
+def test_vulpine_golden_summary_metrics(metrics64):
+    """tests/test_pipeline_golden.py::test_pipeline_summary_metrics'
+    constants and tolerances, and the golden summary's HRR (58.9)."""
+    m = metrics64
+    np.testing.assert_allclose(float(m.avg_bpm[0]), 122.2, atol=0.05)
+    np.testing.assert_allclose(float(m.min_bpm[0]), 78.6, atol=0.05)
+    np.testing.assert_allclose(float(m.max_bpm[0]), 163.3, atol=0.05)
+    np.testing.assert_allclose(float(m.avg_rmssdc[0]), 117.97, atol=0.005)
+    np.testing.assert_allclose(float(m.avg_sdnn[0]), 70.29, atol=0.005)
+    np.testing.assert_allclose(float(m.peak_exertion.slope[0]), 3.35, atol=0.005)
+    np.testing.assert_allclose(float(m.peak_recovery.slope[0]), -3.11, atol=0.005)
+    assert bool(m.hrr.found[0])
+    assert abs(float(m.hrr.hrr[0]) - 58.9) < 0.05
+
+
+def test_vulpine_golden_float32(oracle):
+    """tests/test_pipeline_golden.py::test_pipeline_float32 on the port: beat
+    F1 >= 0.99 against the golden's final beats at float32."""
+    res = _run_default(oracle, np.float32)
+    count = int(res.final_count[0])
+    got = set(res.final_positions.numpy()[0, :count].tolist())
+    exp = set(oracle["final_peaks"].tolist())
+    inter = len(got & exp)
+    precision = inter / max(len(got), 1)
+    recall = inter / len(exp)
+    f1 = 2 * precision * recall / (precision + recall)
+    assert f1 >= 0.99, f"float32 beat F1 {f1:.4f} (got {len(got)} peaks, exp {len(exp)})"
