@@ -16,7 +16,7 @@ import torch
 
 from ..config import AnalyzerConfig
 from ..ops import find_peaks as fp
-from ..ops import rolling
+from ..ops import rolling, series
 from ..ops.indexing import arange, scatter_drop, take
 
 
@@ -187,7 +187,7 @@ def slope_extrema(bpm: BpmSeries, cfg: AnalyzerConfig, capacity: int = 64):
 
     dt = t[:, 1:] - t[:, :-1]
     dt_valid = slot[:, :-1] < count - 1
-    mean_dt = torch.nanmean(torch.where(dt_valid, dt, _nan_like(dt)), dim=1)
+    mean_dt = series.nanmean_fixed(torch.where(dt_valid, dt, _nan_like(dt)))
     safe = torch.where(mean_dt == 0, torch.ones_like(mean_dt), mean_dt)
     dist = torch.where(torch.isnan(mean_dt) | (mean_dt == 0),
                        torch.full_like(mean_dt, 5, dtype=torch.int32),
@@ -314,10 +314,11 @@ def windowed_hrv(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
     wvalid = (starts + w <= n_rr) & (count >= w)
     idx = torch.clamp(starts[:, :, None] + arange(w, positions)[None, None, :], 0, cap - 2)
     win = take(rr_ms, idx.expand(bsz, -1, -1))             # (B, capacity, w)
-    mean_rr = win.mean(dim=2)
-    sdnn = win.std(dim=2, correction=0)
+    # Fixed-order sums: the same bits for a recording whatever the batch.
+    mean_rr = series.fixed_order_sum(win) / w
+    sdnn = torch.sqrt(series.fixed_order_sum((win - mean_rr[..., None]) ** 2) / w)
     sd = win[:, :, 1:] - win[:, :, :-1]
-    rmssd = torch.sqrt((sd ** 2).mean(dim=2))
+    rmssd = torch.sqrt(series.fixed_order_sum(sd ** 2) / (w - 1))
     mean_rr_sec = mean_rr / 1000.0
     rmssdc = torch.where(mean_rr_sec > 0, rmssd / mean_rr_sec, torch.zeros_like(rmssd))
     wbpm = torch.where(mean_rr_sec > 0, 60.0 / mean_rr_sec, torch.zeros_like(mean_rr_sec))
@@ -351,12 +352,12 @@ def compute_metrics(positions: torch.Tensor, count: torch.Tensor, sample_rate: i
     sm = torch.where(valid, bpm.smoothed, _nan_like(bpm.smoothed))
     nonempty = bpm.count > 0
     nan = torch.full_like(sm[:, 0], float("nan"))
-    avg = torch.where(nonempty, torch.nanmean(sm, dim=1), nan)
+    avg = torch.where(nonempty, series.nanmean_fixed(sm), nan)
     mn = torch.where(nonempty, _nan_reduce(sm, "min"), nan)
     mx = torch.where(nonempty, _nan_reduce(sm, "max"), nan)
     hrv_nonempty = hrv.count > 0
-    avg_rmssdc = torch.where(hrv_nonempty, torch.nanmean(hrv.rmssdc, dim=1), nan)
-    avg_sdnn = torch.where(hrv_nonempty, torch.nanmean(hrv.sdnn, dim=1), nan)
+    avg_rmssdc = torch.where(hrv_nonempty, series.nanmean_fixed(hrv.rmssdc), nan)
+    avg_sdnn = torch.where(hrv_nonempty, series.nanmean_fixed(hrv.sdnn), nan)
     slope_ext = slope_extrema(bpm, cfg)
     return Metrics(
         bpm=bpm,

@@ -134,7 +134,8 @@ def deviation_series(envelope, floor, positions, count, cfg: AnalyzerConfig):
     window = torch.clamp(
         (n_dev.to(dtype) * cfg.pairing.deviation_smoothing_factor).to(torch.int32),
         min=5)
-    smoothed = rolling.rolling_mean_dynamic_window(d, valid, window)
+    max_window = max(5, int((cap - 1) * cfg.pairing.deviation_smoothing_factor) + 1)
+    smoothed = rolling.rolling_mean_dynamic_window(d, valid, window, max_window)
     return smoothed, strengths
 
 

@@ -56,24 +56,46 @@ def rolling_mean_centered_masked(x: torch.Tensor, valid: torch.Tensor,
                        torch.full_like(sums, float("nan")))
 
 
+def _window_sum(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, before: int,
+                after: int) -> torch.Tensor:
+    """Sum of ``x[b, j]`` over ``lo[b, i] <= j < hi[b, i]`` for every slot i
+    of (B, n) ``x``, where each window lies within ``[i - before, i +
+    after]``: shifted adds in ascending slot order.  The association depends
+    on neither the batch nor the row length, so a recording's windowed sums
+    are the same bits in any batch; a prefix-sum difference would take its
+    association from the library scan, which picks it from the whole shape
+    on the card."""
+    n = x.shape[-1]
+    idx = arange(n, x)[None, :]
+    acc = torch.zeros_like(x)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    for m in range(max(-before, 1 - n), min(after, n - 1) + 1):
+        if m < 0:
+            shifted = torch.nn.functional.pad(x[:, :n + m], (-m, 0))
+        else:
+            shifted = torch.nn.functional.pad(x[:, m:], (0, m))
+        j = idx + m
+        acc = acc + torch.where((j >= lo) & (j < hi), shifted, zero)
+    return acc
+
+
 def rolling_mean_dynamic_window(x: torch.Tensor, valid: torch.Tensor,
-                                window: torch.Tensor) -> torch.Tensor:
-    """Centered rolling mean over (B, n) with a per-row window (B,) int:
-    masked prefix sums, truncated to the valid prefix (the deviation-series
-    smoothing, bpm_analysis.py:99)."""
+                                window: torch.Tensor, max_window: int) -> torch.Tensor:
+    """Centered rolling mean over (B, n) with a per-row window (B,) int of
+    at most ``max_window``: masked sums, truncated to the valid prefix (the
+    deviation-series smoothing, bpm_analysis.py:99)."""
     n = x.shape[-1]
     window = window.long()[:, None]
     left = window // 2
     right = (window - 1) // 2
     xz = torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device))
-    zero = torch.zeros(x.shape[0], 1, dtype=x.dtype, device=x.device)
-    csum = torch.cat([zero, torch.cumsum(xz, dim=1)], dim=1)
-    ccnt = torch.cat([zero.long(), torch.cumsum(valid.long(), dim=1)], dim=1)
+    zero = torch.zeros(x.shape[0], 1, dtype=torch.int64, device=x.device)
+    ccnt = torch.cat([zero, torch.cumsum(valid.long(), dim=1)], dim=1)
     idx = arange(n, x)[None, :]
     nvalid = valid.long().sum(dim=1, keepdim=True)
     lo = torch.minimum(torch.clamp(idx - left, min=0), nvalid)
     hi = torch.minimum(torch.clamp(idx + right + 1, min=0), nvalid)
-    sums = take(csum, hi) - take(csum, lo)
+    sums = _window_sum(xz, lo, hi, max_window // 2, (max_window - 1) // 2)
     counts = take(ccnt, hi) - take(ccnt, lo)
     nan = torch.full_like(sums, float("nan"))
     out = torch.where(counts > 0, sums / torch.clamp(counts, min=1).to(x.dtype), nan)
@@ -89,18 +111,18 @@ def rolling_mean_time_window(
 
     ``times`` is sorted over its valid prefix.  With
     ``max_slots_in_half_window`` (a lower bound on the sample spacing turned
-    into a slot bound) the window bounds come from shifted compares instead
-    of searchsorted; both give the same indices."""
+    into a slot bound) the window bounds come from shifted compares and the
+    sums from :func:`_window_sum`, in an order that does not depend on the
+    batch; without it, from searchsorted and a prefix sum."""
     half = window_sec / 2.0
     b, n = times.shape
     nvalid = valid.long().sum(dim=1, keepdim=True)
     big = torch.finfo(times.dtype).max
     t = torch.where(valid, times, torch.full_like(times, big))
     vz = torch.where(valid, values, torch.zeros_like(values))
-    zero = torch.zeros(b, 1, dtype=values.dtype, device=values.device)
-    csum = torch.cat([zero, torch.cumsum(vz, dim=1)], dim=1)
     M = max_slots_in_half_window
-    if M is not None and M < n:
+    bounded = M is not None and M < n
+    if bounded:
         idx = arange(n, times)[None, :]
         cnt_next = torch.zeros(b, n, dtype=torch.int64, device=times.device)
         cnt_prev = torch.zeros_like(cnt_next)
@@ -118,7 +140,12 @@ def rolling_mean_time_window(
         hi = torch.searchsorted(t, t + half, right=True)
     hi = torch.minimum(torch.clamp(hi, min=0), nvalid)
     lo = torch.minimum(torch.clamp(lo, min=0), nvalid)
-    sums = take(csum, hi) - take(csum, lo)
+    if bounded:
+        sums = _window_sum(vz, lo, hi, M, M)
+    else:
+        zero = torch.zeros(b, 1, dtype=values.dtype, device=values.device)
+        csum = torch.cat([zero, torch.cumsum(vz, dim=1)], dim=1)
+        sums = take(csum, hi) - take(csum, lo)
     counts = (hi - lo).to(values.dtype)
     nan = torch.full_like(sums, float("nan"))
     out = torch.where(counts > 0, sums / torch.clamp(counts, min=1), nan)

@@ -13,6 +13,31 @@ import torch
 from .indexing import arange, scatter_drop, take
 
 
+def fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis as a pairwise tree of elementwise adds (the
+    axis zero-padded to a power of two, then halves added until one
+    remains).  The association depends only on the axis length, so a row
+    sums to the same bits whatever the batch shape and on either device;
+    a library reduction picks its association from the whole shape on the
+    card."""
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width > n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def nanmean_fixed(x: torch.Tensor) -> torch.Tensor:
+    """``torch.nanmean`` along the last axis with :func:`fixed_order_sum`'s
+    association (NaN for an all-NaN row)."""
+    ok = ~torch.isnan(x)
+    total = fixed_order_sum(torch.where(ok, x, torch.zeros_like(x)))
+    return total / ok.sum(dim=-1).to(x.dtype)
+
+
 def _ffill_pairs(value: torch.Tensor, valid: torch.Tensor):
     """Forward-fill (value, valid) along the last axis, as the JAX package's
     associative scan combines them: each slot takes the value of the nearest

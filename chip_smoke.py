@@ -36,7 +36,17 @@ the seconds since start:
    ``torch.nanquantile`` yardstick, and the card against the CPU;
 8. the default configuration (stride 1: the exact wavelet-tree floor) in
    float64 on the vulpine recording of ``tests/golden/vulpine_oracle.npz``,
-   with both prominence backends, against the golden counts and beats.
+   with both prominence backends, against the golden counts and beats;
+9. the host path at full width: phase 4's 16 recordings written as int16
+   302 Hz WAVs through ``host_batch.analyze_files_batched`` at phase 4's
+   configuration with every artifact (launch counts, the phase-5 accuracy
+   gates, positions against phase 4's in-memory run, wall time and each
+   lane's seconds), the same files in two chunks (the main thread's
+   dispatch with and without a render running beside it), the serial
+   ``host.analyze_wav_file`` on recording 0 against the batched artifacts,
+   two 44.1 kHz recordings decimated by the native decoder against
+   ``bench_cpu_native.json``, and the CLI on the vulpine signal in a
+   subprocess.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result.  Any failing phase exits non-zero before the result line; without a
@@ -46,8 +56,10 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,8 +108,10 @@ OPS_DIGIT_ROUND, DIGIT_ROUNDS, OPS_KEY_ONCE = 3, 4, 1
 OPS_ANCHOR = DIGIT_ROUNDS * 256 * 2
 STRIDED_RTOL = 1e-6     # tests/test_pallas_quantile.py:26
 DIVISION_PAIRS = 1 << 28
-VULPINE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
-                       "vulpine_oracle.npz")
+REPO = os.path.dirname(os.path.abspath(__file__))
+VULPINE = os.path.join(REPO, "tests", "golden", "vulpine_oracle.npz")
+ARTIFACTS = ("_bpm_plot.csv", "_bpm_plot.html", "_Analysis_Summary.md", "_Debug_Log.md",
+             "_Analysis_Settings.json", "_filtered_debug.wav")
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
@@ -552,20 +566,10 @@ def warm_best(batch, cfg, reps: int) -> float:
 
 
 def check_accuracy(res, oracle, label):
-    from bpm_analysis_tpu_torch.accuracy import (F1_FLOOR, MAE_CEIL, beat_f1, bpm_mae,
-                                                 result_curves)
+    from bpm_analysis_tpu_torch.accuracy import result_curves
 
     curves = result_curves(res, SR)
-    f1s, maes = [], []
-    for s in SEEDS:
-        beats, times, values = curves[s]
-        ref = oracle[str(s)]
-        f1s.append(beat_f1(beats, ref["beat_times"]))
-        maes.append(bpm_mae(ref["bpm_times"], ref["bpm_values"], times, values))
-    log(f"{label} accuracy vs CPU reference over {len(SEEDS)} seeds: worst beat F1 "
-        f"{min(f1s):.6f}, worst BPM MAE {max(maes):.6f}")
-    check(min(f1s) >= F1_FLOOR, f"{label}: worst beat F1 {min(f1s)} < {F1_FLOOR}")
-    check(max(maes) < MAE_CEIL, f"{label}: worst BPM MAE {max(maes)} >= {MAE_CEIL}")
+    gate_curves(curves, oracle, SEEDS, label)
     return curves
 
 
@@ -647,6 +651,262 @@ def check_vulpine_default(card, dev):
         f"{len(oracle['final_peaks'])} final beats as the golden")
 
 
+def native_config():
+    """The JAX bench's sizing for its 44.1 kHz files (bench.py:606-610 via
+    ``_bench_cfg``): 4096 raw peaks and troughs, 3072 candidates, work
+    factor 8, prominence factor 2.0, 32768 extrema slots; stride 64,
+    float32, "auto" as on the main path."""
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig, RuntimeConfig
+
+    return AnalyzerConfig(runtime=RuntimeConfig(
+        max_raw_peaks=4096, max_troughs=4096, max_candidates=3072,
+        dtype="float32", noise_quantile_stride=64, quantile_backend="auto",
+        find_peaks_work_factor=8, prominence_work_factor=2.0,
+        prominence_residual_capacity=1024, raw_candidate_capacity=0,
+        extrema_capacity=32768))
+
+
+def normalized(path: str) -> list:
+    """An artifact's lines without the generation-timestamp lines."""
+    with open(path, "rb") as f:
+        return [line for line in f.read().split(b"\n")
+                if not line.startswith((b"*Generated on:", b"Analysis performed on:"))]
+
+
+_AMP_LINE = re.compile(rb"^(- \*\*(?:Raw Amp|Noise Floor)\*\*: `)(-?[\d.]+)(`)$")
+
+
+def artifacts_differ(a: str, b: str, suffix: str):
+    """None when two artifacts meet the serial/batched contract of
+    tests/test_host_batch.py (byte-equal without timestamps; the debug log's
+    amplitude display lines may move by one 0.1 quantum), else a message."""
+    la, lb = normalized(a), normalized(b)
+    if la == lb:
+        return None
+    if suffix != "_Debug_Log.md" or len(la) != len(lb):
+        diff = [i for i, (x, y) in enumerate(zip(la, lb)) if x != y]
+        first = diff[0] if diff else min(len(la), len(lb))
+        return (f"{suffix}: {len(la)} vs {len(lb)} lines, {len(diff)} differ, the first "
+                f"at line {first + 1}: {la[first:first + 1]!r} vs {lb[first:first + 1]!r}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x == y:
+            continue
+        mx, my = _AMP_LINE.match(x), _AMP_LINE.match(y)
+        if not (mx and my and mx.group(1) == my.group(1)
+                and abs(float(mx.group(2)) - float(my.group(2))) <= 0.1001):
+            return f"{suffix} line {i + 1}: {x!r} != {y!r}"
+    return None
+
+
+def host_curves(results, paths, rate):
+    """Per-file (beat_times, bpm_times, bpm_values) of numpy result rows."""
+    out = []
+    for p in paths:
+        r = results[p]
+        k = int(r.metrics.bpm.count)
+        out.append((r.final_positions[: int(r.final_count)] / rate,
+                    r.metrics.bpm.times[:k], r.metrics.bpm.smoothed[:k]))
+    return out
+
+
+def gate_curves(curves, oracle, seeds, label):
+    """The accuracy gates: worst beat F1 >= 0.99 and BPM MAE < 0.5 of each
+    file's (beat_times, bpm_times, bpm_values) against its oracle."""
+    from bpm_analysis_tpu_torch.accuracy import F1_FLOOR, MAE_CEIL, beat_f1, bpm_mae
+
+    f1s, maes = [], []
+    for s, (beats, times, values) in zip(seeds, curves):
+        ref = oracle[str(s)]
+        f1s.append(beat_f1(beats, ref["beat_times"]))
+        maes.append(bpm_mae(ref["bpm_times"], ref["bpm_values"], times, values))
+    log(f"{label} accuracy vs CPU reference over {len(seeds)} files: worst beat F1 "
+        f"{min(f1s):.6f}, worst BPM MAE {max(maes):.6f}")
+    check(min(f1s) >= F1_FLOOR, f"{label}: worst beat F1 {min(f1s)} < {F1_FLOOR}")
+    check(max(maes) < MAE_CEIL, f"{label}: worst BPM MAE {max(maes)} >= {MAE_CEIL}")
+
+
+def lanes_text(lanes: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}s" if k != "chunks" else f"chunks {int(v)}"
+                     for k, v in sorted(lanes.items()))
+
+
+def timed_dispatches(host_batch, renders: list, dispatches: list):
+    """Wrap the batched front-end's per-chunk device call and the renderer
+    so each call's (start, end) is recorded; returns the originals."""
+    from bpm_analysis_tpu_torch import host
+
+    saved = [(host_batch, "_analyze_padded_batch"), (host, "render_artifacts")]
+    originals = [getattr(m, a) for m, a in saved]
+
+    def wrap(fn, into):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                into.append((t0, time.perf_counter()))
+        return wrapper
+
+    host_batch._analyze_padded_batch = wrap(originals[0], dispatches)
+    host.render_artifacts = wrap(originals[1], renders)
+    return saved, originals
+
+
+def check_host_path(card, cfg, batch_i16, res_mem, oracle, tmp):
+    """Phase 9: the host path (files in, artifacts out) at full width."""
+    from bpm_analysis_tpu_torch import host, host_batch, synth
+    from bpm_analysis_tpu_torch.io import native, wav
+
+    t_phase = time.perf_counter()
+    check(native.available(), "the native WAV decoder did not build or load")
+    paths = []
+    for s in SEEDS:
+        paths.append(os.path.join(tmp, "src", f"rec_{s:02d}.wav"))
+        os.makedirs(os.path.dirname(paths[-1]), exist_ok=True)
+        wav.write(paths[-1], SR, batch_i16[s])
+
+    # Batched, one chunk of 16, every artifact.
+    out_b = os.path.join(tmp, "batched")
+    lanes = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results, errors = host_batch.analyze_files_batched(paths, cfg, out_b, max_batch=BATCH,
+                                                       lane_stats=lanes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(errors == [], f"batched host errors: {errors[:3]}")
+    log(f"batched host, {BATCH} files in one chunk: kernel launches {launches}")
+    check(launches == {"knot_quantile": 2, "strided_quantile": 0},
+          f"expected 2 knot-kernel launches on the host chunk, got {launches}")
+    for p in paths:
+        base = os.path.splitext(os.path.basename(p))[0]
+        for suffix in ARTIFACTS:
+            check(os.path.exists(os.path.join(out_b, base + suffix)), f"missing {base}{suffix}")
+        check(results[p] is not None and not bool(results[p].overflowed),
+              f"{base}: no result or overflow")
+    mem_pos = res_mem.final_positions.cpu().numpy()
+    mem_cnt = res_mem.final_count.cpu().numpy()
+    differ = 0
+    for s, p in zip(SEEDS, paths):
+        got = results[p].final_positions[: int(results[p].final_count)]
+        differ += len(np.setxor1d(got, mem_pos[s, : mem_cnt[s]]))
+    log(f"  final positions differing from phase 4's in-memory run (n={batch_i16.shape[1]}; "
+        f"the host pads to {host_batch.length_bucket(batch_i16.shape[1])} with n_valid): "
+        f"{differ}")
+    log(f"  wall {wall:.3f}s = {BATCH * synth.MINUTES / wall:.2f} audio-min/s on {card}; lanes: "
+        f"{lanes_text(lanes)}")
+    gate_curves(host_curves(results, paths, SR), oracle, SEEDS, "phase 9 batched host")
+
+    # The same files in two chunks: chunk 2's dispatch runs beside chunk 1's
+    # render on the fetch thread, chunk 1's beside no render.
+    lanes2, renders, dispatches = {}, [], []
+    saved, originals = timed_dispatches(host_batch, renders, dispatches)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results2, errors = host_batch.analyze_files_batched(
+            paths, cfg, os.path.join(tmp, "batched8"), max_batch=BATCH // 2, lane_stats=lanes2)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        for (mod, attr), fn in zip(saved, originals):
+            setattr(mod, attr, fn)
+    half = BATCH // 2
+    check(errors == [] and len(dispatches) == 2 and len(renders) == BATCH,
+          f"two-chunk run: {errors[:3]}")
+    (d1s, d1e), (d2s, d2e) = dispatches
+    beside = sum(max(0.0, min(e, d2e) - max(s, d2s)) for s, e in renders)
+    render1 = sum(e - s for s, e in renders[:half]) / half
+    render2 = sum(e - s for s, e in renders[half:]) / half
+    differ2 = sum(len(np.setxor1d(results[p].final_positions[: int(results[p].final_count)],
+                                  results2[p].final_positions[: int(results2[p].final_count)]))
+                  for p in paths)
+    log(f"two chunks of {half}: wall {wall2:.3f}s = {BATCH * synth.MINUTES / wall2:.2f} "
+        f"audio-min/s on {card}; dispatch chunk 1 {d1e - d1s:.3f}s (no render beside it), "
+        f"chunk 2 {d2e - d2s:.3f}s ({beside:.3f}s of chunk 1's render ran beside it); render "
+        f"per file {render1:.3f}s for chunk 1 (beside chunk 2's dispatch), {render2:.3f}s for "
+        f"chunk 2 (alone); lanes: {lanes_text(lanes2)}; positions differing from the "
+        f"one-chunk run: {differ2}")
+
+    # Serial on recording 0, against the batched artifacts.
+    out_s = os.path.join(tmp, "serial")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res_s = host.analyze_wav_file(paths[0], cfg, output_directory=out_s)
+    torch.cuda.synchronize()
+    log(f"serial host on recording 0: {time.perf_counter() - t0:.3f}s on {card}; "
+        f"launches {read_launches()}")
+    check(res_s is not None, "serial host: no result")
+    got = res_s.final_positions[: int(res_s.final_count)]
+    exp = results[paths[0]].final_positions[: int(results[paths[0]].final_count)]
+    log(f"  serial vs batched final positions: {len(got)} vs {len(exp)} beats, "
+        f"{len(np.setxor1d(got, exp))} differ")
+    for suffix in ARTIFACTS:
+        if suffix in ("_bpm_plot.html", "_filtered_debug.wav"):
+            continue        # outside the contract, as in tests/test_host_batch.py
+        msg = artifacts_differ(os.path.join(out_s, "rec_00" + suffix),
+                               os.path.join(out_b, "rec_00" + suffix), suffix)
+        check(msg is None, f"serial vs batched: {msg}")
+    log("  serial artifacts equal the batched ones (CSV, summary, settings byte-equal; "
+        "debug log within one amplitude quantum)")
+
+    # Native rate: 44.1 kHz files decimated on the host by the strided decode.
+    t0 = time.perf_counter()
+    npaths = []
+    for s in (0, 1):
+        npaths.append(os.path.join(tmp, "src", f"native_{s}.wav"))
+        wav.write(npaths[-1], synth.NATIVE_SR,
+                  synth._quantize_int16(synth.synth_recording_native(s)))
+    log(f"  wrote two {synth.MINUTES}-min {synth.NATIVE_SR} Hz WAVs "
+        f"({os.path.getsize(npaths[0]) / 1e6:.1f} MB each) in {time.perf_counter() - t0:.2f}s")
+    ncfg = native_config()
+    lanes_n = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    nres, errors = host_batch.analyze_files_batched(npaths, ncfg, os.path.join(tmp, "native"),
+                                                    max_batch=2, render=False,
+                                                    lane_stats=lanes_n)
+    torch.cuda.synchronize()
+    wall_n = time.perf_counter() - t0
+    launches_n = read_launches()
+    check(errors == [], f"native-rate errors: {errors[:3]}")
+    check(launches_n["knot_quantile"] == 2, f"native-rate launches {launches_n}")
+    log(f"native rate, 2 files: wall {wall_n:.3f}s = {2 * synth.MINUTES / wall_n:.2f} "
+        f"audio-min/s on {card}; "
+        f"launches {launches_n}; lanes: {lanes_text(lanes_n)}")
+    with open(os.path.join(REPO, "bench_cpu_native.json")) as f:
+        native_oracle = json.load(f)["per_seed"]
+    rate = host.post_rate(synth.NATIVE_SR, ncfg)
+    gate_curves(host_curves(nres, npaths, rate), native_oracle, (0, 1), "phase 9 native rate")
+
+    # The CLI on the vulpine signal, in a subprocess on the card.
+    oracle_v = np.load(VULPINE)
+    vwav = os.path.join(tmp, "src", "vulpine.wav")
+    wav.write(vwav, int(oracle_v["sample_rate"]), oracle_v["raw_signal"].astype(np.int16))
+    out_c = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bpm_analysis_tpu_torch.apps.cli", vwav,
+                           "--pre-filtered", "--dtype", "float64", "--output-dir", out_c],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    log(f"CLI on vulpine: exit {proc.returncode} in {time.perf_counter() - t0:.2f}s: "
+        f"{proc.stdout.strip()}")
+    check(proc.returncode == 0, f"CLI failed: {proc.stderr[-2000:]}")
+    check(": 734 beats," in proc.stdout, "the CLI did not report 734 beats")
+    with open(os.path.join(out_c, "vulpine_bpm_plot.csv")) as f:
+        rows = [tuple(line.strip().split(",")) for line in f.readlines()[1:]]
+    want = [(f"{t:.3f}", f"{b:.3f}") for t, b in zip(oracle_v["bpm_times"],
+                                                      oracle_v["smoothed_bpm"])
+            if not np.isnan(b)]
+    check(rows == want, f"CLI CSV: {len(rows)} rows, {len(want)} expected, "
+                        f"{sum(a != b for a, b in zip(rows, want))} differ")
+    log(f"  CLI CSV: {len(rows)} rows equal to the golden series at the CSV's precision")
+    log(f"phase 9 host path: ok in {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -698,8 +958,8 @@ def main() -> int:
     # ---- 4. main path at full width ----------------------------------------
     cfg = engine_config()
     t0 = time.perf_counter()
-    batch = np.stack([synth._quantize_int16(synth.synth_recording(s)).astype(np.float32)
-                      for s in SEEDS])
+    batch_i16 = np.stack([synth._quantize_int16(synth.synth_recording(s)) for s in SEEDS])
+    batch = batch_i16.astype(np.float32)
     log(f"synthesized {batch.shape} in {time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
@@ -751,9 +1011,7 @@ def main() -> int:
     log("phase 4 main path: ok")
 
     # ---- 5. accuracy against the CPU reference -----------------------------
-    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "bench_cpu_baseline.json")
-    with open(ref_path) as f:
+    with open(os.path.join(REPO, "bench_cpu_baseline.json")) as f:
         oracle = json.load(f)["per_seed"]
     curves = check_accuracy(res, oracle, "phase 5")
 
@@ -811,6 +1069,10 @@ def main() -> int:
     # ---- 8. the default configuration on the vulpine recording -------------
     check_vulpine_default(card, dev)
     log("phase 8 default configuration: ok")
+
+    # ---- 9. the host path at full width -------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        check_host_path(card, cfg, batch_i16, res, oracle, tmp)
 
     table = {"kernels": [{
         "name": "knot_quantile",

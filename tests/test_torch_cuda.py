@@ -95,3 +95,96 @@ def test_strided_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         quantile_kernel.strided_quantile_anchors(x, quantile_kernel.MAX_WINDOW + 1, 0.2, 3, 8)
     assert quantile_kernel.launches == before
+
+
+@pytest.mark.gpu
+def test_batched_host_on_the_card_equals_the_cpu(tmp_path, monkeypatch):
+    """``host_batch.analyze_files_batched`` on two short synthetic WAVs on the
+    card: final positions equal the same call with ``device="cpu"``; the
+    chunk was staged in pinned host memory, copied on the side stream, and
+    the compute stream waited on the copy's event."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch import host_batch, synth
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig, RuntimeConfig
+    from bpm_analysis_tpu_torch.io import wav
+
+    cfg = AnalyzerConfig(runtime=RuntimeConfig(
+        max_raw_peaks=512, max_troughs=512, max_candidates=256, extrema_capacity=4096,
+        noise_quantile_stride=64, quantile_backend="auto", dtype="float32"))
+    paths = []
+    for seed, seconds in ((0, 45), (1, 42)):     # one length bucket, one chunk
+        p = str(tmp_path / f"rec{seed}.wav")
+        wav.write(p, synth.SR, synth._quantize_int16(synth.synth_recording(seed)[:synth.SR * seconds]))
+        paths.append(p)
+
+    pinned, waits = [], []
+    real_buffer, real_wait = host_batch._staging_buffer, torch.cuda.Stream.wait_event
+
+    def spy_buffer(*a, **k):
+        buf = real_buffer(*a, **k)
+        pinned.append(buf.is_pinned())
+        return buf
+
+    def spy_wait(self, event):
+        waits.append(event)
+        return real_wait(self, event)
+
+    monkeypatch.setattr(host_batch, "_staging_buffer", spy_buffer)
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", spy_wait)
+    before = knot_kernel.launches
+    card, errors = host_batch.analyze_files_batched(paths, cfg, str(tmp_path / "card"),
+                                                   render=False, min_bucket=1 << 13)
+    assert errors == []
+    assert knot_kernel.launches == before + 2
+    assert pinned and all(pinned) and len(waits) == 1
+    cpu, errors = host_batch.analyze_files_batched(paths, cfg, str(tmp_path / "cpu"),
+                                                  render=False, min_bucket=1 << 13,
+                                                  device="cpu")
+    assert errors == []
+    for p in paths:
+        count = int(cpu[p].final_count)
+        assert count > 40 and int(card[p].final_count) == count
+        np.testing.assert_array_equal(card[p].final_positions[:count],
+                                      cpu[p].final_positions[:count])
+
+
+@pytest.mark.gpu
+def test_fixed_order_sums_do_not_depend_on_the_batch_on_the_card():
+    """A row alone and the same row in a batch of 16 give the same bits on
+    the card: the rolling means, the fixed-order sums and the metrics built
+    on them (a library scan or reduction would take its association from
+    the whole shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.models import analytics
+    from bpm_analysis_tpu_torch.ops import rolling, series
+
+    rng = np.random.RandomState(0)
+    dev = torch.device("cuda")
+    cap = 1536
+    gaps = rng.randint(40, 140, size=(16, cap))
+    positions = torch.from_numpy(np.cumsum(gaps, axis=1).astype(np.int32)).to(dev)
+    count = torch.from_numpy(rng.randint(1000, 1400, size=16).astype(np.int32)).to(dev)
+    cfg = AnalyzerConfig()
+    batch = analytics.compute_metrics(positions, count, 302, cfg, torch.float32)
+    alone = analytics.compute_metrics(positions[:1], count[:1], 302, cfg, torch.float32)
+    def same(a, b):
+        return torch.equal(torch.nan_to_num(a[:1]), torch.nan_to_num(b))
+
+    for name in ("avg_bpm", "avg_rmssdc", "avg_sdnn"):
+        assert same(getattr(batch, name), getattr(alone, name)), name
+    for name in ("times", "smoothed"):
+        assert same(getattr(batch.bpm, name), getattr(alone.bpm, name)), name
+    for name in ("rmssdc", "sdnn", "bpm"):
+        assert same(getattr(batch.hrv, name), getattr(alone.hrv, name)), name
+
+    x = torch.from_numpy(rng.rand(16, 2559).astype(np.float32) * 3).to(dev)
+    valid = torch.arange(2559, device=dev)[None, :] < torch.from_numpy(
+        rng.randint(1500, 2559, size=(16, 1))).to(dev)
+    window = torch.full((16,), 97, dtype=torch.int32, device=dev)
+    got = rolling.rolling_mean_dynamic_window(x, valid, window, 128)
+    one = rolling.rolling_mean_dynamic_window(x[:1], valid[:1], window[:1], 128)
+    assert same(got, one)
+    assert torch.equal(series.fixed_order_sum(x)[:1], series.fixed_order_sum(x[:1]))

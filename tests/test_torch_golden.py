@@ -8,20 +8,27 @@ tests/test_pipeline_golden.py::test_pipeline_stage_outputs and
 tests/test_noise_floor.py's rtol 1e-9.  The metrics of the float64 run are
 held to the oracle's series (rtol 1e-9), to the summary constants of
 ::test_pipeline_summary_metrics and to the golden HRR of
-tests/test_analytics.py::test_hrr_compat_truncated_interp; the float32 run
-to ::test_pipeline_float32's beat F1.
+tests/test_analytics.py::test_hrr_compat_truncated_interp, and its trace
+strings to tests/golden/vulpine_debug_info.json; the float32 run to
+::test_pipeline_float32's beat F1.
 """
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from bpm_analysis_tpu_torch import config as tcfg
+from bpm_analysis_tpu_torch import host
 from bpm_analysis_tpu_torch import types as ttypes
 from bpm_analysis_tpu_torch.models import envelope as tenv
 from bpm_analysis_tpu_torch.models import noise_floor as tnf
 from bpm_analysis_tpu_torch.models import pipeline as tpipe
+from bpm_analysis_tpu_torch.reports import trace
+
+GOLDEN_DEBUG_INFO = os.path.join(os.path.dirname(__file__), "golden", "vulpine_debug_info.json")
 
 # The suite runs several worker processes at once; these small tensors gain
 # nothing from intra-op threads, and oversubscribed threads stall each other.
@@ -67,14 +74,14 @@ def _run_default(oracle, dtype):
 
 
 @pytest.fixture(scope="module")
-def metrics64(oracle):
-    return _run_default(oracle, np.float64).metrics
+def result64(oracle):
+    return _run_default(oracle, np.float64)
 
 
-def test_vulpine_golden_bpm_and_hrv_series(oracle, metrics64):
+def test_vulpine_golden_bpm_and_hrv_series(oracle, result64):
     """The BPM curve and the HRV windows of the port's own beats, float64,
     against the oracle's series at rtol 1e-9."""
-    m = metrics64
+    m = result64.metrics
     count = int(m.bpm.count[0])
     assert count == len(oracle["bpm_times"])
     np.testing.assert_allclose(m.bpm.times.numpy()[0, :count], oracle["bpm_times"],
@@ -88,10 +95,10 @@ def test_vulpine_golden_bpm_and_hrv_series(oracle, metrics64):
                                    oracle[f"hrv_{field}"], rtol=1e-9, err_msg=field)
 
 
-def test_vulpine_golden_summary_metrics(metrics64):
+def test_vulpine_golden_summary_metrics(result64):
     """tests/test_pipeline_golden.py::test_pipeline_summary_metrics'
     constants and tolerances, and the golden summary's HRR (58.9)."""
-    m = metrics64
+    m = result64.metrics
     np.testing.assert_allclose(float(m.avg_bpm[0]), 122.2, atol=0.05)
     np.testing.assert_allclose(float(m.min_bpm[0]), 78.6, atol=0.05)
     np.testing.assert_allclose(float(m.max_bpm[0]), 163.3, atol=0.05)
@@ -101,6 +108,20 @@ def test_vulpine_golden_summary_metrics(metrics64):
     np.testing.assert_allclose(float(m.peak_recovery.slope[0]), -3.11, atol=0.005)
     assert bool(m.hrr.found[0])
     assert abs(float(m.hrr.hrr[0]) - 58.9) < 0.05
+
+
+def test_vulpine_golden_trace_strings(result64):
+    """The port's ``reports.trace.debug_strings`` of the float64 result equal
+    tests/golden/vulpine_debug_info.json string for string (the check of
+    tests/test_reports.py::test_debug_strings_match_oracle_strings)."""
+    with open(GOLDEN_DEBUG_INFO) as f:
+        golden = {int(k): v for k, v in json.load(f).items()}
+    ours = trace.debug_strings(host.tree_row(host.to_host(result64), 0), tcfg.DEFAULT_CONFIG)
+    assert set(ours) == set(golden)
+    mismatches = [k for k in golden if ours[k] != golden[k]]
+    assert not mismatches, (
+        f"{len(mismatches)} differing debug strings; first at {mismatches[0]}:\n"
+        f"OURS:   {ours[mismatches[0]]!r}\nGOLDEN: {golden[mismatches[0]]!r}")
 
 
 def test_vulpine_golden_float32(oracle):
