@@ -5,10 +5,13 @@ loop, gui.py:181-265, for headless use): multiple files, a per-file error
 roster, BPM-hint persistence (auto-loaded from
 ``{base}_Analysis_Settings.json`` like gui.py:143-166), and auto-discovery
 of supported audio in the working directory (gui.py:88-115).  It runs on
-the CUDA card unless ``--device cpu``.
+the CUDA card unless ``--device cpu``.  ``--batch --dp N`` shards the
+batches over N ranks (``parallel.mesh.spawn``): NCCL when each rank has a
+card of its own, gloo when ranks share a card or run on the CPU.
 
     python -m bpm_analysis_tpu_torch.apps.cli recording.wav --output-dir processed_files
     python -m bpm_analysis_tpu_torch.apps.cli *.wav --batch --bpm-hint 120
+    python -m bpm_analysis_tpu_torch.apps.cli *.wav --batch --dp 4
     python -m bpm_analysis_tpu_torch.apps.cli sample_filtered_debug.wav --pre-filtered
 """
 from __future__ import annotations
@@ -18,6 +21,8 @@ import dataclasses
 import logging
 import os
 import sys
+
+import torch
 
 from ..config import DEFAULT_CONFIG
 from ..device import resolve_device
@@ -48,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "float64"], default=None,
                    help="compute dtype (default: config value, float32). "
                         "float64 reproduces the CPU reference byte-exactly")
+    p.add_argument("--dp", type=int, default=0,
+                   help="with --batch, shard batches over this many ranks (0 = one "
+                        "rank per visible card when >1, else unsharded)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the pipeline runs (default: cuda)")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -136,19 +144,52 @@ def report_errors(errors) -> int:
 
 def run_batched(args, files, file_hint) -> int:
     """Device-batched mode: bucket mixed-length files into shared shapes and
-    analyze them as batches — the parallel replacement of the reference's
-    serial loop (gui.py:202)."""
+    analyze them as batches (optionally dp-sharded over ranks) — the
+    parallel replacement of the reference's serial loop (gui.py:202)."""
     from .. import host_batch
 
+    hints = [file_hint(f) for f in files]
+    dp = args.dp
+    if dp <= 0:
+        dp = torch.cuda.device_count() if args.device == "cuda" else 1
+    if dp > 1:
+        from ..parallel.mesh import spawn
+
+        return spawn(_batched_rank, dp, None, args.device, files, hints, args._cfg,
+                     args.output_dir, args.batch_size, args.pre_filtered, args.verbose)[0]
     results, errors = host_batch.analyze_files_batched(
-        files, args._cfg, args.output_dir,
-        hints=[file_hint(f) for f in files],
+        files, args._cfg, args.output_dir, hints=hints,
         max_batch=args.batch_size, pre_filtered=args.pre_filtered, device=args.device,
     )
+    return report_batched(files, results, errors, args.output_dir)
+
+
+def report_batched(files, results, errors, output_dir: str) -> int:
     for path in files:
         if path in results:
-            print_result(path, results[path], args.output_dir)
+            print_result(path, results[path], output_dir)
     return report_errors(errors)
+
+
+def _batched_rank(files, hints, cfg, output_dir, batch_size, pre_filtered, verbose) -> int:
+    """One rank of ``--batch --dp N``: its share of the batches; rank 0
+    prints the roster every rank holds."""
+    from .. import host_batch
+    from ..parallel.mesh import make_mesh
+
+    logging.basicConfig(level=logging.INFO if verbose else logging.WARNING,
+                        format="%(asctime)s - [%(levelname)s] - %(message)s",
+                        stream=sys.stdout)
+    mesh = make_mesh()
+    results, errors = host_batch.analyze_files_batched(
+        files, cfg, output_dir, hints=hints, max_batch=batch_size,
+        pre_filtered=pre_filtered, mesh=mesh)
+    if mesh.index != 0:
+        return 1 if errors else 0
+    code = report_batched(files, results, errors, output_dir)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    return code
 
 
 if __name__ == "__main__":

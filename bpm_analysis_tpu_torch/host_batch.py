@@ -18,7 +18,9 @@ Host-to-device staging: each chunk decodes into a pinned host buffer, is
 copied with ``non_blocking=True`` on a side CUDA stream, and the compute
 stream waits on the copy's event; the staged tensors are recorded on the
 compute stream so the caching allocator does not hand their memory out
-early.  On the CPU the same code runs with no streams.
+early.  On the CPU the same code runs with no streams.  With a mesh
+(``parallel.mesh.make_mesh``) each rank takes its rows of every chunk and
+the ranks gather one roster.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -30,6 +32,7 @@ import logging
 import os
 import shutil
 import time
+import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -209,6 +212,7 @@ def analyze_files_batched(
     min_bucket: int = 1 << 15,
     pre_filtered: bool = False,
     render: bool = True,
+    mesh=None,
     lane_stats: Optional[Dict[str, float]] = None,
     overflow_retries: int = 1,
     device=None,
@@ -218,6 +222,18 @@ def analyze_files_batched(
     None when fewer than 2 beats — the reference's "no report" outcome), and
     errors is a per-file roster of (path, message).  Runs on CUDA unless
     ``device="cpu"``.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``) the batches are sharded over
+    every rank of the mesh, as the JAX package shards them over its mesh's
+    devices; each rank calls this with the same arguments, on the mesh's
+    device.  A chunk's batch pads up to a multiple of the mesh size and
+    each rank takes its contiguous rows (padding rows are discarded; a rank
+    whose rows are all padding skips the chunk).  Rank r copies or
+    converts only every size-th input and decodes, stages, analyzes and
+    renders only its own rows' files.  The (results, errors) roster is
+    gathered from every rank, so every rank returns the same pair, in the
+    unsharded roster's order; ``lane_stats`` stays per rank.  If a rank
+    raises, every rank raises after the gather instead of waiting on it.
 
     Field contract under ``render=False``: only the result fields a fleet
     summary reads are fetched from the device — ``final_positions``,
@@ -249,7 +265,82 @@ def analyze_files_batched(
     overflows after the retries surfaces the serial path's capacity-overflow
     error on its per-file roster.  Set 0 for the serial-mode contract.
     """
-    dev = resolve_device(device)
+    args = (paths, cfg, output_dir, hints, max_batch, min_bucket, pre_filtered, render,
+            lane_stats, overflow_retries)
+    if mesh is None:
+        results, errors, _ = _analyze_files(*args, resolve_device(device), None)
+        return results, errors
+    return _analyze_files_sharded(mesh, args)
+
+
+def _analyze_files_sharded(mesh, args):
+    """One rank's part of ``analyze_files_batched(mesh=...)``: its share of
+    the work, then the roster gathered from every rank and merged in the
+    unsharded order (conversion and probe errors first, then staging
+    errors, then post-processing errors, each in chunk order)."""
+    from .parallel.mesh import all_gather_object
+
+    try:
+        outcome = (*_analyze_files(*args, mesh.device, mesh), None)
+    except Exception:
+        outcome = ({}, [], None, traceback.format_exc())
+    everyone = all_gather_object(mesh, outcome)
+    failed = [f"rank {r} failed:\n{o[3]}" for r, o in enumerate(everyone) if o[3]]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    n_head, _, order = everyone[0][2]
+    staged, post, merged = [], [], {}
+    for results, errors, (_, n_staged, _), _ in everyone:
+        staged += errors[n_head:n_staged]
+        post += errors[n_staged:]
+        merged.update(results)
+
+    errors = (everyone[0][1][:n_head] + sorted(staged, key=lambda e: order[e[0]])
+              + sorted(post, key=lambda e: order[e[0]]))
+    return {p: merged[p] for p in sorted(merged, key=order.__getitem__)}, errors
+
+
+def _prepare_shared(mesh, paths: Sequence[str], output_dir: str,
+                    errors: List[Tuple[str, str]]) -> List[Tuple[Optional[str], str]]:
+    """``prepare_wavs`` with every size-th input on each rank, the pairs and
+    conversion errors gathered so that every rank holds all of them, in
+    input order."""
+    from .parallel.mesh import all_gather_object
+
+    mine = list(range(mesh.index, len(paths), mesh.size))
+    errs: List[Tuple[str, str]] = []
+    local = prepare_wavs([paths[i] for i in mine], output_dir, errs)
+    pairs: List[Tuple[Optional[str], str]] = [None] * len(paths)
+    failed = []
+    for idxs, rank_pairs, rank_errs in all_gather_object(mesh, (mine, local, errs)):
+        rank_errs = iter(rank_errs)
+        for i, pair in zip(idxs, rank_pairs):
+            pairs[i] = pair
+            if pair[0] is None:
+                failed.append((i, next(rank_errs)))
+    errors.extend(e for _, e in sorted(failed))
+    return pairs
+
+
+def _rank_share(mesh, chunks):
+    """This rank's rows of each chunk: the chunk's batch pads up to a
+    multiple of the mesh size and rank i takes rows [i*per, (i+1)*per);
+    chunks whose share is all padding are dropped."""
+    mine = []
+    for sr, bucket_len, i16, fir, idxs, b in chunks:
+        per = -(-max(b, mesh.size) // mesh.size)
+        rows = idxs[mesh.index * per:(mesh.index + 1) * per]
+        if rows:
+            mine.append((sr, bucket_len, i16, fir, rows, per))
+    return mine
+
+
+def _analyze_files(paths, cfg, output_dir, hints, max_batch, min_bucket, pre_filtered,
+                   render, lane_stats, overflow_retries, dev, mesh):
+    """The body of ``analyze_files_batched`` on ``dev``: with ``mesh``, this
+    rank's share of it.  Returns (results, errors, (errors before the first
+    chunk, errors once every chunk was dispatched, each file's (chunk,
+    row) in the unsharded chunk list))."""
     cuda = dev.type == "cuda"
     errors: List[Tuple[str, str]] = []
     results: Dict[str, object] = {}
@@ -262,7 +353,8 @@ def analyze_files_batched(
         if lane_stats is not None:
             lane_stats[key] = lane_stats.get(key, 0.0) + dt
 
-    pairs = prepare_wavs(paths, output_dir, errors)
+    pairs = (prepare_wavs(paths, output_dir, errors) if mesh is None
+             else _prepare_shared(mesh, paths, output_dir, errors))
 
     # Serial mode raises for recordings too short to odd-extend in filtfilt;
     # reject them at probe time so the masked batch never sees an n_valid
@@ -321,21 +413,27 @@ def analyze_files_batched(
             errors.append((orig, str(e)))
             logging.warning(f"probe failed for {orig}: {e}")
 
-    # --- chunk work list -----------------------------------------------------
-    chunks: List[Tuple[int, int, bool, bool, List[int]]] = []
+    # --- chunk work list: (rate, bucket, int16, FIR, file indices, rows) -----
+    chunks: List[Tuple[int, int, bool, bool, List[int], int]] = []
     for (sr, bucket_len, i16, fir), idxs in sorted(groups.items()):
         for chunk_start in range(0, len(idxs), max_batch):
-            chunks.append((sr, bucket_len, i16, fir,
-                           idxs[chunk_start:chunk_start + max_batch]))
+            chunk = idxs[chunk_start:chunk_start + max_batch]
+            chunks.append((sr, bucket_len, i16, fir, chunk,
+                           batch_bucket(len(chunk), max_batch)))
+    order = {pairs[i][1]: (ci, row) for ci, c in enumerate(chunks)
+             for row, i in enumerate(c[4])}
+    if mesh is not None:
+        chunks = _rank_share(mesh, chunks)
+    n_head = len(errors)
 
-    def decode_chunk(sr: int, bucket_len: int, i16: bool, fir: bool, chunk: List[int]):
-        """Decode + pad one chunk into a host staging buffer, on the decode
-        thread (the C++ decoder releases the GIL).  Returns (chunk, ok_rows,
-        host tensors, staging_errors); errors are merged on the main thread
-        to keep the roster order deterministic."""
+    def decode_chunk(sr: int, bucket_len: int, i16: bool, fir: bool, chunk: List[int],
+                     b: int):
+        """Decode + pad one chunk into a host staging buffer of ``b`` rows,
+        on the decode thread (the C++ decoder releases the GIL).  Returns
+        (chunk, ok_rows, host tensors, staging_errors); errors are merged on
+        the main thread to keep the roster order deterministic."""
         t0 = time.perf_counter()
         staging_errors: List[Tuple[str, str]] = []
-        b = batch_bucket(len(chunk), max_batch)
         wav_paths = [pairs[i][0] for i in chunk]
         audio_t = _staging_buffer((b, bucket_len), torch.int16 if i16 else torch.float32,
                                   cuda)
@@ -531,8 +629,8 @@ def analyze_files_batched(
     #   fetch thread:  chunk k-1's results are fetched and rendered.
     # Decode look-ahead is bounded by buffer bytes.
     if chunks:
-        max_chunk_bytes = max(batch_bucket(len(c), max_batch) * bl * (2 if i16 else 4)
-                              for (_, bl, i16, _fir, c) in chunks)
+        max_chunk_bytes = max(b * bl * (2 if i16 else 4)
+                              for (_, bl, i16, _fir, _c, b) in chunks)
         lookahead = max(1, min(3, int((256 << 20) // max(max_chunk_bytes, 1))))
         with ThreadPoolExecutor(max_workers=1) as decode_pool, \
                 ThreadPoolExecutor(max_workers=1) as h2d_pool, \
@@ -554,8 +652,11 @@ def analyze_files_batched(
                     h2ds.append(h2d_pool.submit(h2d_chunk, dec.popleft()))
                 dispatched = dispatch_chunk(chunks[ci][0], staged)
                 fetches.append(fetch_pool.submit(finish_chunk, chunks[ci][0], dispatched))
+            n_staged = len(errors)
             for f in fetches:
                 errors.extend(f.result())
+    else:
+        n_staged = len(errors)
 
-    return results, errors
+    return results, errors, (n_head, n_staged, order)
 

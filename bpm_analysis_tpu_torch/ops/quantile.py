@@ -196,6 +196,40 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
     return torch.where(cnt >= min_periods, out, torch.full_like(out, float("nan")))
 
 
+def rolling_quantile_centered_sort(x: torch.Tensor, window: int, q: float,
+                                   min_periods: int = 1, chunk: int = 1024) -> torch.Tensor:
+    """The sliding quantile of each row of ``x`` (B, n) by sorting every
+    window: exact, O(n * window * log window), kept to cross-check
+    :func:`rolling_quantile_centered` in tests as the JAX package keeps its
+    own.  Missing values (NaN) sort last as the dtype's largest finite
+    value; windows are unfolded ``chunk`` outputs at a time."""
+    bsz, n = x.shape
+    left, right = centered_bounds(window)
+    dtype = x.dtype
+    valid = ~torch.isnan(x)
+    big = torch.full((bsz, 1), torch.finfo(dtype).max, dtype=dtype, device=x.device)
+    xpad = torch.cat([big.expand(bsz, left), torch.where(valid, x, big),
+                      big.expand(bsz, right)], dim=1)
+    off = torch.zeros((bsz, 1), dtype=torch.bool, device=x.device)
+    vpad = torch.cat([off.expand(bsz, left), valid, off.expand(bsz, right)], dim=1)
+    qf = torch.tensor(q, dtype=dtype, device=x.device)
+    out = []
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        wins = xpad[:, c0:c1 + window - 1].unfold(1, window, 1)    # (B, c, window)
+        counts = vpad[:, c0:c1 + window - 1].unfold(1, window, 1).sum(dim=-1)
+        swins = torch.sort(wins, dim=-1).values                   # valid values first
+        pos = qf * (counts - 1).to(dtype)
+        lo = torch.clamp(torch.floor(pos).long(), 0, window - 1)
+        hi = torch.clamp(torch.ceil(pos).long(), 0, window - 1)
+        frac = pos - lo.to(dtype)
+        v_lo = torch.gather(swins, 2, lo[..., None])[..., 0]
+        v_hi = torch.gather(swins, 2, hi[..., None])[..., 0]
+        res = v_lo * (1 - frac) + v_hi * frac
+        out.append(torch.where(counts >= min_periods, res, torch.full_like(res, float("nan"))))
+    return torch.cat(out, dim=1) if out else x.new_empty((bsz, 0))
+
+
 def _rowwise_select_kth(wins: torch.Tensor, valid: torch.Tensor,
                         k: torch.Tensor) -> torch.Tensor:
     """k-th smallest valid element along the last axis of ``wins``, for
@@ -227,23 +261,31 @@ def strided_quantile_anchors(x: torch.Tensor, window: int, q: float,
     to ``B * chunk * window`` elements, and reduced by the row-wise radix
     select; the next order statistic is v_lo itself when its duplicates
     reach rank k+1, else the smallest valid value above it."""
-    bsz, n = x.shape
     left, right = centered_bounds(window)
-    n_anchor = -(-n // stride)
-    nan = float("nan")
     # Window of anchor a in padded coordinates: [a*stride, a*stride + window);
     # the anchors' last position (n_anchor-1)*stride never passes n-1.
-    xpad = torch.nn.functional.pad(x, (left, right), value=nan)
+    xpad = torch.nn.functional.pad(x, (left, right), value=float("nan"))
+    return _strided_anchors_of_padded(xpad, window, q, min_periods, stride, chunk)
+
+
+def _strided_anchors_of_padded(xpad: torch.Tensor, window: int, q: float,
+                               min_periods: int, stride: int, chunk: int) -> torch.Tensor:
+    """The anchors of :func:`strided_quantile_anchors` for rows that
+    ``xpad`` holds with their window context in place (NaN = missing):
+    anchor a's window is ``xpad[:, a * stride : a * stride + window]``."""
+    bsz = xpad.shape[0]
+    nan = float("nan")
     all_wins = xpad.unfold(1, window, stride)           # (B, n_anchor, window)
-    qf = torch.tensor(q, dtype=x.dtype, device=x.device)
+    n_anchor = all_wins.shape[1]
+    qf = torch.tensor(q, dtype=xpad.dtype, device=xpad.device)
     out = []
     for a0 in range(0, n_anchor, chunk):
         wins = all_wins[:, a0:a0 + chunk]
         valid = ~torch.isnan(wins)
         counts = valid.sum(dim=-1)
-        pos = qf * torch.clamp(counts - 1, min=0).to(x.dtype)
+        pos = qf * torch.clamp(counts - 1, min=0).to(xpad.dtype)
         k_lo = torch.clamp(torch.floor(pos).long(), 0, window - 1)
-        frac = pos - k_lo.to(x.dtype)
+        frac = pos - k_lo.to(xpad.dtype)
         v_lo = _rowwise_select_kth(wins, valid, k_lo)
         cnt_le = (valid & (wins <= v_lo[..., None])).sum(dim=-1)
         above = torch.where(valid & (wins > v_lo[..., None]), wins,
@@ -252,7 +294,7 @@ def strided_quantile_anchors(x: torch.Tensor, window: int, q: float,
         res = torch.where(frac > 0, v_lo + frac * (v_hi - v_lo), v_lo)
         out.append(torch.where(counts >= min_periods, res, torch.full_like(res, nan)))
     if not out:
-        return x.new_empty((bsz, 0))
+        return xpad.new_empty((bsz, 0))
     return torch.cat(out, dim=1)
 
 

@@ -20,16 +20,22 @@ def centered_bounds(window: int) -> tuple[int, int]:
     return window // 2, (window - 1) // 2
 
 
-def _windowed_sum_fixed_order(x: torch.Tensor, window: int, left: int,
-                              right: int) -> torch.Tensor:
-    """Windowed sum along the last axis as ``window`` shifted adds in
-    ascending sample order (zero padding outside the array)."""
-    n = x.shape[-1]
-    xp = torch.nn.functional.pad(x, (left, right))
+def _window_sums_of_padded(xp: torch.Tensor, window: int, n: int) -> torch.Tensor:
+    """``sum(xp[..., i + k] for k in range(window))`` for i < n, as
+    ``window`` shifted adds in ascending order: the window sums of a series
+    that ``xp`` holds with its left and right context in place."""
     acc = xp[..., 0:n]
     for k in range(1, window):
         acc = acc + xp[..., k:k + n]
     return acc
+
+
+def _windowed_sum_fixed_order(x: torch.Tensor, window: int, left: int,
+                              right: int) -> torch.Tensor:
+    """Windowed sum along the last axis as ``window`` shifted adds in
+    ascending sample order (zero padding outside the array)."""
+    return _window_sums_of_padded(torch.nn.functional.pad(x, (left, right)), window,
+                                  x.shape[-1])
 
 
 def rolling_mean_centered(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -46,7 +46,19 @@ the seconds since start:
    ``host.analyze_wav_file`` on recording 0 against the batched artifacts,
    two 44.1 kHz recordings decimated by the native decoder against
    ``bench_cpu_native.json``, and the CLI on the vulpine signal in a
-   subprocess.
+   subprocess;
+10. scale-out on the one card (``parallel/``), ranks started by
+   ``parallel.mesh.spawn`` after phase 2 built the kernels: dp — 4 gloo
+   ranks share the card on phase 4's batch, 4 recordings each (B1's
+   launches per rank, the gathered beats against phase 4's, ``fleet_summary``
+   against one-device reductions, the phase-5 gates, the warm wall time
+   beside phase 4's); a world of 1 on NCCL runs ``fleet_summary``; sp — 4
+   gloo ranks, each holding a quarter of a two-hour recording on the card,
+   hold the sharded envelope, quantile and filtfilt against the local
+   functions; the host — ``analyze_files_batched(mesh=...)`` on 2 ranks
+   against phase 9's artifacts; and ``utils.profiling.device_trace`` around
+   both kernels, with their CUDA times from the trace beside the CUDA-event
+   times.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result.  Any failing phase exits non-zero before the result line; without a
@@ -107,6 +119,12 @@ PEAK_ISSUE_OPS = 132 * 128 * 1.98e9
 OPS_DIGIT_ROUND, DIGIT_ROUNDS, OPS_KEY_ONCE = 3, 4, 1
 OPS_ANCHOR = DIGIT_ROUNDS * 256 * 2
 STRIDED_RTOL = 1e-6     # tests/test_pallas_quantile.py:26
+# Phase 10: the fleet means of 4 ranks' partial sums against one sum over
+# the batch, both float32: 16 terms summed in another order.
+FLEET_RTOL = 1e-5
+DP_RANKS = SP_RANKS = 4
+SP_RECORDINGS = 12      # two hours at 302 Hz
+SP_QUANTILE = dict(window=3020, q=0.3, min_periods=3, stride=64)
 DIVISION_PAIRS = 1 << 28
 REPO = os.path.dirname(os.path.abspath(__file__))
 VULPINE = os.path.join(REPO, "tests", "golden", "vulpine_oracle.npz")
@@ -905,6 +923,315 @@ def check_host_path(card, cfg, batch_i16, res_mem, oracle, tmp):
                         f"{sum(a != b for a, b in zip(rows, want))} differ")
     log(f"  CLI CSV: {len(rows)} rows equal to the golden series at the CSV's precision")
     log(f"phase 9 host path: ok in {time.perf_counter() - t_phase:.1f}s")
+    return paths, results, out_b
+
+
+def synchronize() -> None:
+    """Wait for the card in a rank body (a no-op where a body is rehearsed
+    on the CPU)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def dp_rank(batch, cfg):
+    """Phase 10's dp rank: phase 4's batch, preprocessed whole on every rank
+    (the replicated input of ``analyze_batch_sharded``), this rank's 4
+    recordings analyzed on the shared card; a cold run, then a warm run with
+    the launch counts set to 0 just before it and read just after, timed
+    between barriers."""
+    import torch.distributed as dist
+
+    from bpm_analysis_tpu_torch.accuracy import result_curves
+    from bpm_analysis_tpu_torch.models import envelope as envm
+    from bpm_analysis_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.make_mesh()
+
+    def run():
+        env = envm.preprocess(batch, SR, cfg, device=m.device)[0]
+        return pmesh.analyze_batch_sharded(m, env, SR, cfg)
+
+    t0 = time.perf_counter()
+    run()
+    synchronize()
+    cold = time.perf_counter() - t0
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    local = run()
+    synchronize()
+    launches = read_launches()
+    dist.barrier()
+    wall = time.perf_counter() - t0
+    full = pmesh.gather_result(m, local)
+    out = {"device": str(m.device), "backend": m.backend, "cold": cold, "wall": wall,
+           "launches": launches, "fleet": pmesh.fleet_summary(m, local)}
+    if m.index == 0:
+        out.update(final_count=full.final_count.cpu().numpy(),
+                   final_positions=full.final_positions.cpu().numpy(),
+                   overflowed=full.overflowed.cpu().numpy(),
+                   curves=result_curves(full, SR))
+    return out
+
+
+def nccl_rank(result_np):
+    """Phase 10's world of 1 on NCCL: ``fleet_summary`` of phase 4's result
+    on the card."""
+    from bpm_analysis_tpu_torch.host import tree_map
+    from bpm_analysis_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.make_mesh()
+    res = tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(m.device), result_np)
+    return {"backend": m.backend, "device": str(m.device),
+            "fleet": pmesh.fleet_summary(m, res)}
+
+
+def sp_rank(x, series):
+    """Phase 10's sp rank: its quarter of the two-hour recording on the
+    card, each sharded function run cold, then timed between barriers; rank
+    0 returns the gathered series."""
+    import torch.distributed as dist
+
+    from bpm_analysis_tpu_torch.parallel import mesh as pmesh, seqshard
+
+    m = pmesh.make_mesh(sp=SP_RANKS)
+    xb = seqshard.shard_sequence(m, torch.from_numpy(x)).to(m.device)
+    yb = seqshard.shard_sequence(m, torch.from_numpy(series)).to(m.device)
+    runs = {
+        "envelope": lambda: seqshard.sequence_sharded_envelope(m, xb, SR // 10),
+        "quantile": lambda: seqshard.sequence_sharded_rolling_quantile(m, yb, **SP_QUANTILE),
+        "filtfilt": lambda: seqshard.sequence_sharded_bandpass_filtfilt(m, xb, SR, 20.0,
+                                                                        150.0),
+    }
+    out = {"device": str(m.device), "seconds": {}, "whole": {}}
+    for name, fn in runs.items():
+        fn()
+        synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        block = fn()
+        synchronize()
+        dist.barrier()
+        out["seconds"][name] = time.perf_counter() - t0
+        whole = seqshard.gather_sequence(m, block)
+        if m.index == 0:
+            out["whole"][name] = whole.cpu().numpy()
+    return out
+
+
+def host_rank(paths, cfg, output_dir):
+    """Phase 10's host rank: ``analyze_files_batched(mesh=...)`` on its
+    share, with the launch counts around it."""
+    from bpm_analysis_tpu_torch import host_batch
+    from bpm_analysis_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.make_mesh()
+    lanes = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    results, errors = host_batch.analyze_files_batched(paths, cfg, output_dir,
+                                                       max_batch=BATCH, mesh=m,
+                                                       lane_stats=lanes)
+    synchronize()
+    return {"wall": time.perf_counter() - t0, "launches": read_launches(),
+            "errors": errors, "lanes": lanes,
+            "positions": {p: r.final_positions[:int(r.final_count)] for p, r in
+                          results.items()},
+            "rows": {p: r._replace(trace=None, classes=None, precorrection_classes=None)
+                     for p, r in results.items()}}
+
+
+def fleet_reference(res) -> dict:
+    """The six reductions of ``fleet_summary`` over a whole batch on one
+    device, in its dtype."""
+    m = res.metrics
+    ok, found = res.ok, m.hrr.found
+    zero = torch.zeros((), dtype=m.avg_bpm.dtype, device=ok.device)
+    n_ok = torch.clamp(ok.sum().to(zero.dtype), min=1)
+    return {
+        "recordings_ok": int(ok.sum()),
+        "mean_avg_bpm": float(torch.where(ok, m.avg_bpm, zero).sum() / n_ok),
+        "min_bpm": float(torch.where(ok, m.min_bpm, zero + float("inf")).amin()),
+        "max_bpm": float(torch.where(ok, m.max_bpm, zero - float("inf")).amax()),
+        "mean_hrr": float(torch.where(found, m.hrr.hrr, zero).sum()
+                          / torch.clamp(found.sum().to(zero.dtype), min=1)),
+        "total_beats": int(torch.where(ok, res.final_count.long(), 0).sum()),
+    }
+
+
+def check_fleet(got: dict, exp: dict, label: str) -> None:
+    for key in ("recordings_ok", "total_beats"):
+        check(got[key] == exp[key], f"{label}: {key} {got[key]} != {exp[key]}")
+    for key in ("mean_avg_bpm", "min_bpm", "max_bpm", "mean_hrr"):
+        check(np.isclose(got[key], exp[key], rtol=FLEET_RTOL, atol=0),
+              f"{label}: {key} {got[key]} vs {exp[key]}")
+
+
+def profiled_kernels(card, knot, strided, tmp) -> None:
+    """Both kernels, 10 calls each at the paths' inputs, inside
+    ``utils.profiling.device_trace``: their CUDA time per call from the
+    trace beside the CUDA-event time."""
+    from bpm_analysis_tpu_torch.utils import profiling
+
+    reps = 10
+    event_ms = {}
+    with profiling.device_trace(os.path.join(tmp, "trace")) as prof:
+        for name, (fn, (a, k)) in (("knot_quantile", knot), ("strided_quantile", strided)):
+            event_ms[name] = cuda_ms(lambda: fn(*a, **k), reps)
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0 and "quantile_kernel" in e.key:
+            rows.append((e.key, e.count, us / 1e3 / e.count))
+    for name in event_ms:
+        hits = [r for r in rows if f"{name}_kernel" in r[0]]
+        if hits:
+            key, n, ms = hits[0]
+            log(f"  profiler: {key[:70]}: {n} launches, {ms:.4f} ms each from the trace; "
+                f"{event_ms[name]:.4f} ms by CUDA events, on {card}")
+        else:
+            log(f"  profiler: no device time for {name} in the trace (CUDA events: "
+                f"{event_ms[name]:.4f} ms)")
+    size = os.path.getsize(os.path.join(tmp, "trace", "trace.json"))
+    log(f"  profiler: Chrome trace of {size} bytes; kernels with device time: "
+        f"{[r[0][:40] for r in rows]}")
+
+
+def check_scale_out(card, cfg, batch, res, best, oracle, host_run, knot, strided, tmp):
+    """Phase 10: scale-out on the one card; returns B1's launches per dp
+    rank."""
+    from bpm_analysis_tpu_torch import host, host_batch, synth
+    from bpm_analysis_tpu_torch.accuracy import beat_f1
+    from bpm_analysis_tpu_torch.ops import filter as filt, quantile as quant, rolling
+    from bpm_analysis_tpu_torch.parallel import mesh as pmesh, seqshard
+
+    t_phase = time.perf_counter()
+    log(f"phase 10 scale-out: {os.cpu_count()} CPU cores on the host")
+
+    # dp: 4 gloo ranks share the card, 4 recordings each.
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(dp_rank, DP_RANKS, "gloo", "cuda", batch, cfg)
+    r0 = ranks[0]
+    dp_launches = [r["launches"]["knot_quantile"] for r in ranks]
+    log(f"dp: {DP_RANKS} ranks on {[r['device'] for r in ranks]} ({r0['backend']}), "
+        f"{time.perf_counter() - t0:.1f}s with startup; cold {max(r['cold'] for r in ranks):.3f}s, "
+        f"warm wall {r0['wall']:.3f}s = {BATCH * synth.MINUTES / r0['wall']:.2f} audio-min/s "
+        f"(phase 4, one process: {best:.3f}s = {BATCH * synth.MINUTES / best:.2f}) on {card}; "
+        f"launches per rank {[r['launches'] for r in ranks]}")
+    check(all(r["launches"] == {"knot_quantile": 2, "strided_quantile": 0} for r in ranks),
+          f"dp: expected 2 knot-kernel launches per rank, got {[r['launches'] for r in ranks]}")
+    exp_count = res.final_count.cpu().numpy()
+    exp_pos = res.final_positions.cpu().numpy()
+    differ = int((r0["final_positions"] != exp_pos).sum())
+    log(f"  gathered final counts equal phase 4's: {np.array_equal(r0['final_count'], exp_count)}; "
+        f"final-position slots differing: {differ}; overflowed {int(r0['overflowed'].sum())}")
+    check(np.array_equal(r0["final_count"], exp_count) and differ == 0,
+          "dp: the gathered beats differ from phase 4's unsharded run")
+    fleet_exp = fleet_reference(res)
+    log(f"  fleet_summary (gloo, 4 ranks): {r0['fleet']}; one device: {fleet_exp}")
+    for r in ranks:
+        check_fleet(r["fleet"], fleet_exp, "dp fleet_summary")
+    gate_curves(r0["curves"], oracle, SEEDS, "phase 10 dp")
+
+    # A world of 1 on NCCL.
+    t0 = time.perf_counter()
+    slim = host.to_host(res._replace(floor=None, trace=None, smoothed_deviation=None))
+    (nccl,) = pmesh.spawn(nccl_rank, 1, "nccl", "cuda", slim)
+    log(f"NCCL world of 1 on {nccl['device']} ({nccl['backend']}), "
+        f"{time.perf_counter() - t0:.1f}s with startup: {nccl['fleet']}")
+    check(nccl["backend"] == "nccl", f"the NCCL world ran on {nccl['backend']}")
+    check_fleet(nccl["fleet"], fleet_exp, "NCCL fleet_summary")
+
+    # sp: a two-hour recording, a quarter per rank.
+    n = SR * 60 * synth.MINUTES * SP_RECORDINGS
+    n -= n % (SP_RANKS * SP_QUANTILE["stride"])
+    x = np.concatenate([synth.synth_recording(s) for s in range(SP_RECORDINGS)])[:n]
+    dev = torch.device("cuda")
+    xt = torch.from_numpy(x).to(dev)[None]
+    local, local_s = {}, {}
+
+    def timed_local(name, fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local[name] = fn()[0]
+        torch.cuda.synchronize()
+        local_s[name] = time.perf_counter() - t0
+
+    timed_local("envelope", lambda: rolling.rolling_mean_centered(xt.abs(), SR // 10))
+    series = local["envelope"].cpu().numpy().copy()
+    series[np.random.RandomState(3).rand(n) < 0.05] = np.nan
+    yt = torch.from_numpy(series).to(dev)[None]
+    timed_local("quantile", lambda: quant.rolling_quantile_centered_strided(yt, **SP_QUANTILE))
+    timed_local("filtfilt", lambda: filt.bandpass_filtfilt(xt, SR, 20.0, 150.0))
+    t0 = time.perf_counter()
+    sp = pmesh.spawn(sp_rank, SP_RANKS, "gloo", "cuda", x, series)
+    log(f"sp: {SP_RANKS} ranks on {[r['device'] for r in sp]}, {n} samples "
+        f"({n // SP_RANKS} a rank), {time.perf_counter() - t0:.1f}s with startup")
+    whole = sp[0]["whole"]
+    for name in ("envelope", "quantile", "filtfilt"):
+        exp = local[name].cpu().numpy()
+        got = whole[name]
+        err = float(np.nanmax(np.abs(got - exp)))
+        log(f"  {name}: sharded {sp[0]['seconds'][name]:.4f}s, local {local_s[name]:.4f}s "
+            f"on {card}; max abs err {err:.6g} (peak {float(np.nanmax(np.abs(exp))):.6g})")
+        if name == "filtfilt":
+            bound = seqshard.FLOAT32_FILTFILT_BOUND * float(np.abs(exp).max())
+            check(err <= bound, f"sp filtfilt: max abs err {err} > {bound}")
+        else:
+            check(np.array_equal(got, exp, equal_nan=True),
+                  f"sp {name}: the sharded result is not equal to the local one")
+    log(f"  sp: envelope and quantile equal to local; filtfilt within "
+        f"{seqshard.FLOAT32_FILTFILT_BOUND} of its peak")
+
+    # The host: analyze_files_batched(mesh=...) on 2 ranks, two of phase 9's
+    # WAVs, one file a rank.  Held to the unsharded run at the ranks' batch
+    # shape (one file a chunk): the filter's matmuls round by batch shape,
+    # so phase 9's chunk of 16 is compared, not gated.
+    paths, results9, out9 = host_run
+    paths = paths[:2]
+    out_u = os.path.join(tmp, "unsharded_b1")
+    t0 = time.perf_counter()
+    results_u, errors = host_batch.analyze_files_batched(paths, cfg, out_u, max_batch=1)
+    torch.cuda.synchronize()
+    check(errors == [], f"unsharded host errors: {errors}")
+    log(f"host, unsharded, one file a chunk: {time.perf_counter() - t0:.3f}s on {card}")
+    out_m = os.path.join(tmp, "mesh")
+    t0 = time.perf_counter()
+    hosts = pmesh.spawn(host_rank, 2, "gloo", "cuda", paths, cfg, out_m)
+    log(f"host, 2 ranks on 2 files: {time.perf_counter() - t0:.1f}s with startup; walls "
+        f"{[round(h['wall'], 3) for h in hosts]} s on {card}; launches "
+        f"{[h['launches'] for h in hosts]}; lanes {[lanes_text(h['lanes']) for h in hosts]}")
+    check(all(h["errors"] == [] for h in hosts), f"host mesh errors: {hosts[0]['errors']}")
+    check([h["launches"]["knot_quantile"] for h in hosts] == [2, 2],
+          f"host mesh launches {[h['launches'] for h in hosts]}")
+    for p in paths:
+        exp = results_u[p].final_positions[:int(results_u[p].final_count)]
+        for h in hosts:
+            check(np.array_equal(h["positions"][p], exp), f"host mesh: {p} positions differ")
+        base = os.path.splitext(os.path.basename(p))[0]
+        for suffix in ("_bpm_plot.csv", "_Analysis_Summary.md", "_Debug_Log.md",
+                       "_Analysis_Settings.json"):
+            msg = artifacts_differ(os.path.join(out_u, base + suffix),
+                                   os.path.join(out_m, base + suffix), suffix)
+            check(msg is None, f"host mesh vs unsharded: {base}: {msg}")
+        b16 = results9[p].final_positions[:int(results9[p].final_count)]
+        csv = artifacts_differ(os.path.join(out9, base + "_bpm_plot.csv"),
+                               os.path.join(out_m, base + "_bpm_plot.csv"), "_bpm_plot.csv")
+        log(f"  {base}: {len(exp)} beats one file a batch, {len(b16)} in phase 9's chunk "
+            f"of 16; {len(np.setxor1d(exp, b16))} positions differ "
+            f"{np.setxor1d(exp, b16)[:10].tolist()}; beat F1 {beat_f1(exp / SR, b16 / SR):.6f}"
+            f"; CSV against phase 9's: {csv or 'equal'}")
+    gate_curves(host_curves({p: hosts[0]["rows"][p] for p in paths}, paths, SR), oracle,
+                (0, 1), "phase 10 host mesh")
+    log("  host mesh artifacts equal the unsharded run's at one file a batch (CSV, summary, "
+        "settings byte-equal; debug log within one amplitude quantum); positions equal")
+
+    profiled_kernels(card, knot, strided, tmp)
+    log(f"phase 10 scale-out: ok in {time.perf_counter() - t_phase:.1f}s")
+    return dp_launches
 
 
 def main() -> int:
@@ -996,6 +1323,7 @@ def main() -> int:
     def plain(*a, **k):
         return kq.rolling_quantile_knots(*a, **k, dtype=torch.float32)
 
+    knot_call = captured[-1]
     for label, (a, k) in zip(("draft floor", "final floor"), captured):
         got = real_anchors(*a, **k)
         err, rel, ok = compare(got, plain(*a, **k))
@@ -1044,6 +1372,7 @@ def main() -> int:
     curves_b2 = check_accuracy(res_b2, oracle, "phase 7")
 
     real_strided = quantile_kernel.strided_quantile_anchors
+    strided_call = s_captured[-1]
     for label, (a, k) in zip(("draft floor", "final floor"), s_captured):
         got = real_strided(*a, **k)
         err, rel, ok = compare(got, quantile_kernel.plain_anchors(*a, **k),
@@ -1072,7 +1401,13 @@ def main() -> int:
 
     # ---- 9. the host path at full width -------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
-        check_host_path(card, cfg, batch_i16, res, oracle, tmp)
+        host_run = check_host_path(card, cfg, batch_i16, res, oracle, tmp)
+
+        # ---- 10. scale-out on the one card -----------------------------------
+        torch.cuda.empty_cache()
+        dp_launches = check_scale_out(card, cfg, batch, res, best, oracle, host_run,
+                                      (real_anchors, knot_call),
+                                      (real_strided, strided_call), tmp)
 
     table = {"kernels": [{
         "name": "knot_quantile",
@@ -1080,6 +1415,7 @@ def main() -> int:
         "source": "bpm_analysis_tpu_torch/csrc/knot_quantile.cu",
         "replaces": "bpm_analysis_tpu/ops/pallas/knot_kernel.py:81",
         "launches": launches["knot_quantile"],
+        "dp_launches_per_rank": dp_launches,
         "max_abs_err": knot_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -36,9 +36,10 @@ def _options(parser):
 
 def test_flags_are_the_jax_clis_without_dp_with_device():
     jax_flags, port_flags = _options(jcli.build_parser()), _options(tcli.build_parser())
-    assert port_flags == (jax_flags - {"--dp"}) | {"--device"}
+    assert port_flags == jax_flags | {"--device"}
     args = tcli.build_parser().parse_args(["a.wav"])
     assert args.device == "cuda" and args.dtype is None and args.batch_size == 128
+    assert args.dp == 0
 
 
 @pytest.mark.parametrize("batch", [False, True], ids=["serial", "batch"])

@@ -188,3 +188,43 @@ def test_fixed_order_sums_do_not_depend_on_the_batch_on_the_card():
     one = rolling.rolling_mean_dynamic_window(x[:1], valid[:1], window[:1], 128)
     assert same(got, one)
     assert torch.equal(series.fixed_order_sum(x)[:1], series.fixed_order_sum(x[:1]))
+
+
+@pytest.mark.gpu
+def test_dp_ranks_share_the_card(tmp_path):
+    """Two gloo ranks on the one card (the default backend when ranks share
+    a card): ``analyze_files_batched(mesh=...)`` gives the unsharded card
+    run's final positions on both ranks, and the exchange helpers carry a
+    CUDA tensor through gloo and back onto the rank's device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import _torch_rank_bodies as bodies
+    from bpm_analysis_tpu_torch import host_batch, synth
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig, RuntimeConfig
+    from bpm_analysis_tpu_torch.io import wav
+    from bpm_analysis_tpu_torch.parallel import mesh
+
+    cfg = AnalyzerConfig(runtime=RuntimeConfig(
+        max_raw_peaks=512, max_troughs=512, max_candidates=256, extrema_capacity=4096,
+        noise_quantile_stride=64, quantile_backend="auto", dtype="float32"))
+    paths = []
+    for seed, seconds in ((0, 45), (1, 42)):
+        p = str(tmp_path / f"rec{seed}.wav")
+        wav.write(p, synth.SR, synth._quantize_int16(synth.synth_recording(seed)[:synth.SR * seconds]))
+        paths.append(p)
+    card, errors = host_batch.analyze_files_batched(paths, cfg, str(tmp_path / "card"),
+                                                   render=False, min_bucket=1 << 13)
+    assert errors == []
+    ranks = mesh.spawn(bodies.card_dp_rank, 2, None, "cuda", paths, cfg,
+                       str(tmp_path / "mesh"))
+    for roster, rank_errors, trip in ranks:
+        assert rank_errors == []
+        for p in paths:
+            count = int(card[p].final_count)
+            assert count > 40
+            np.testing.assert_array_equal(roster[p], card[p].final_positions[:count])
+        assert trip["backend"] == "gloo"
+        assert trip["device"] == trip["summed_device"] == trip["rank_device"] == "cuda:0"
+        np.testing.assert_array_equal(trip["gathered"],
+                                      np.arange(5, dtype=np.float32) + [[0], [10]])
+        np.testing.assert_array_equal(trip["summed"], 2 * np.arange(5) + 10)

@@ -159,3 +159,21 @@ def test_fill_pairs_match_associative_scan():
             ev, ef = ref(jnp.asarray(x[r]), jnp.asarray(valid[r]))
             np.testing.assert_array_equal(v.numpy()[r], np.asarray(ev))
             np.testing.assert_array_equal(f.numpy()[r], np.asarray(ef))
+
+
+def test_rolling_quantile_sort_matches_jax_and_the_wavelet_tree():
+    """The sort cross-check (``rolling_quantile_centered_sort``) against JAX's
+    on tests/test_quantile.py's cross-check input (rows of a batch, one of
+    them short of ``min_periods`` at its edges), and against the port's
+    wavelet tree, both at rtol 1e-12 in float64."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 1000) * 100
+    x[rng.rand(2, 1000) < 0.15] = np.nan
+    x[1, 40:200] = np.nan
+    got = tq.rolling_quantile_centered_sort(torch.from_numpy(x), 73, 0.37, 4, chunk=128)
+    exp = np.stack([np.asarray(jq.rolling_quantile_centered_sort(jnp.asarray(r), 73, 0.37, 4,
+                                                                 chunk=128)) for r in x])
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-12, equal_nan=True)
+    tree = tq.rolling_quantile_centered(torch.from_numpy(x), 73, 0.37, 4).numpy()
+    np.testing.assert_allclose(got.numpy(), tree, rtol=1e-12, equal_nan=True)
+    assert np.isnan(got.numpy()[1, 100])
