@@ -10,11 +10,12 @@ batch of one.  Entry points run on CUDA unless the caller passes
 
 The serial path pads each recording to a power-of-two bucket and passes the
 true length as ``n_valid``, as the JAX package does; the masked pipeline
-computes the unpadded analysis.  The port runs eagerly, so the filter's
-matmuls may round the last bit differently at another batch shape: the
-batched front-end's artifacts equal this path's under the contract of
-tests/test_host_batch.py (every byte, but for one 0.1 quantum on the debug
-log's amplitude display lines).
+computes the unpadded analysis.  The filter's products and the rolling and
+metric means are sums in an order fixed by the row alone, so a recording
+gives the same result in any batch; the batched front-end's artifacts
+equal this path's under the contract of tests/test_host_batch.py (every
+byte, but for one 0.1 quantum on the debug log's amplitude display lines,
+which the JAX package's contract allows).
 """
 from __future__ import annotations
 

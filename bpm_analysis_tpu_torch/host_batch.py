@@ -10,9 +10,10 @@ same per-file artifact set the serial front-end produces.
 Artifact contract (tests/test_torch_host_batch.py): every decision, peak
 position, count, CSV row, summary and settings file is byte-identical to
 the serial path (``host.analyze_wav_file``).  The only tolerated difference
-is a one-quantum flip in the debug log's amplitude *display* fields: the
-filter's matmuls may associate float sums differently at another batch
-shape, which can move a raw envelope value across a 0.1-rounding boundary.
+is the JAX package's: a one-quantum flip in the debug log's amplitude
+*display* fields.  The port's filter products and rolling and metric means
+are sums in an order fixed by the row alone, so a recording gives the same
+result in any batch.
 
 Host-to-device staging: each chunk decodes into a pinned host buffer, is
 copied with ``non_blocking=True`` on a side CUDA stream, and the compute

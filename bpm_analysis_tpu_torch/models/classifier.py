@@ -1,9 +1,12 @@
-"""The stateful beat classifier as one sequential loop over raw-peak slots.
+"""The stateful beat classifier as one sequential scan over raw-peak slots.
 
 Port of ``bpm_analysis_tpu/models/classifier.py`` (reference
 ``PeakClassifier``, bpm_analysis.py:64-330, and its confidence helpers
-:1120-1250).  The JAX ``lax.scan`` becomes a Python loop over slots whose
-state is (B,)-shaped, so every recording of the batch advances in lockstep:
+:1120-1250).  The JAX ``lax.scan`` becomes, on the card, the CUDA kernel
+``csrc/classify_scan.cu`` (one thread per recording, through
+``ops/cuda/classify_kernel``) and, on the CPU, its plain version
+:func:`scan_plain`: a Python loop over slots whose state is (B,)-shaped, so
+every recording of the batch advances in lockstep:
 
 * the reference's variable advance (1 for lone/noise, 2 for an S1-S2 pair)
   is a ``pending_s2`` carry flag — the slot after an accepted pair is the S2;
@@ -13,8 +16,8 @@ state is (B,)-shaped, so every recording of the batch advances in lockstep:
 
 Everything that depends only on the slot's inputs (intervals, strength
 ratios, the boost amount, the forward-check terms) is computed for all slots
-before the loop; the loop carries only what depends on the state.  The loop
-reads nothing back to the host.
+before the scan (:class:`ScanInputs`); the scan carries only what depends on
+the state and reads nothing back to the host.
 
 Quirks reproduced (SURVEY.md §2): the belief EMA runs once per processed
 step even when it classified noise; a NaN confidence clamps to 1.0; the
@@ -29,6 +32,7 @@ import torch
 
 from ..config import AnalyzerConfig
 from ..ops import rolling
+from ..ops.cuda import classify_kernel
 from ..ops.indexing import arange, take
 from .. import types
 
@@ -139,6 +143,26 @@ def deviation_series(envelope, floor, positions, count, cfg: AnalyzerConfig):
     return smoothed, strengths
 
 
+class ScanInputs(NamedTuple):
+    """What the carry-dependent loop reads, all computed before it: per slot
+    (B, capacity) and per row (B,)."""
+
+    positions: torch.Tensor     # int32 raw-peak positions (padded with n)
+    count: torch.Tensor         # (B,) int32 valid slots
+    start_belief: torch.Tensor  # (B,) the belief's initial value
+    deviation: torch.Tensor     # smoothed deviation at the (t-1, t) midpoint
+    interval_sec: torch.Tensor  # to the next raw peak
+    s2_s1_ratio: torch.Tensor
+    s1_s2_ratio: torch.Tensor
+    strength: torch.Tensor
+    boost: torch.Tensor         # boost amount if boosted
+    implied_bpm: torch.Tensor
+    flags: torch.Tensor         # uint8: STRONG_S1 | IN_RECOVERY | FWD_WAIVED
+
+
+STRONG_S1, IN_RECOVERY, FWD_WAIVED = 1, 2, 4
+
+
 class _Carry(NamedTuple):
     pending_s2: torch.Tensor
     belief: torch.Tensor
@@ -153,68 +177,34 @@ class _Carry(NamedTuple):
     ks_prev_was_lone: torch.Tensor
 
 
-def classify(
-    envelope: torch.Tensor,
-    floor: torch.Tensor,
-    positions: torch.Tensor,
-    count: torch.Tensor,
-    sample_rate: int,
-    start_bpm: torch.Tensor,
-    cfg: AnalyzerConfig,
-    peak_bpm_time_sec=None,
-    recovery_end_time_sec=None,
-    want_trace: bool = True,
-) -> ClassifierResult:
-    """Run the classification over the raw-peak slots of every row.
-    ``want_trace=False`` keeps only ``peak_class`` (the preliminary pass)."""
+def scan_plain(x: ScanInputs, sample_rate: int, cfg: AnalyzerConfig,
+               want_trace: bool = True):
+    """The carry-dependent loop over the slots, one step per slot for every
+    row at once: the plain version of ``csrc/classify_scan.cu``.  Returns
+    (peak_class (B, capacity) int32, the trace or None).
+
+    Every division has a tensor divisor, so it is an IEEE division on any
+    device (a CUDA division by a Python number multiplies by its
+    reciprocal); a Python number over a tensor is torch's
+    ``reciprocal() * number`` everywhere."""
     p = cfg.pairing
     r = cfg.rhythm
-    dtype = envelope.dtype
-    dev = envelope.device
-    bsz, n = envelope.shape
-    cap = positions.shape[1]
+    dtype = x.deviation.dtype
+    dev = x.deviation.device
+    bsz, cap = x.positions.shape
     sr = torch.tensor(sample_rate, dtype=dtype, device=dev)
     nan = float("nan")
-    count = count.long()
-
-    smoothed_dev, strengths = deviation_series(envelope, floor, positions, count, cfg)
-    # Deviation seen by slot t's pair attempt: the (t-1, t) midpoint value.
-    dev_at_slot = torch.cat([torch.full((bsz, 1), nan, dtype=dtype, device=dev),
-                             smoothed_dev], dim=1)
-
-    positions = positions.long()
-    env_at = take(envelope, torch.clamp(positions, 0, n - 1))
-    times = positions.to(dtype) / sr
-    pos_next = torch.cat([positions[:, 1:], torch.full((bsz, 1), n, dtype=torch.int64,
-                                                       device=dev)], dim=1)
-    env_next = torch.cat([env_at[:, 1:], env_at[:, -1:]], dim=1)
-    strength_next = torch.cat([strengths[:, 1:], strengths[:, -1:]], dim=1)
-
-    hist = p.stability_history_window
-    if peak_bpm_time_sec is not None and recovery_end_time_sec is not None:
-        rec_lo = peak_bpm_time_sec.to(dtype)[:, None]
-        rec_hi = recovery_end_time_sec.to(dtype)[:, None]
-        rec_valid = ~(torch.isnan(rec_lo) | torch.isnan(rec_hi))
-    else:
-        rec_lo = rec_hi = torch.zeros(bsz, 1, dtype=dtype, device=dev)
-        rec_valid = torch.zeros(bsz, 1, dtype=torch.bool, device=dev)
-    kickstart = cfg.compat.kickstart_effective
-
-    # ---- slot-only terms, for every slot at once -----------------------------
-    slots = arange(cap, envelope)[None, :]
+    count = x.count.long()
+    positions = x.positions.long()
+    slots = arange(cap, x.deviation)[None, :]
     active_all = slots < count[:, None]
     is_last_all = slots == count[:, None] - 1
-    interval_all = (pos_next - positions).to(dtype) / sr
-    s2s1_all = strength_next / (strengths + 1e-9)
-    s1s2_all = strengths / (strength_next + 1e-9)
-    strong_s1_all = strengths > strength_next * p.s1_s2_boost_ratio
-    exceed_all = torch.clamp((s1s2_all - p.s1_s2_boost_ratio)
-                             / (p.boost_saturation_ratio - p.s1_s2_boost_ratio), 0, 1)
-    boost_all = p.boost_amount_min + exceed_all * (p.boost_amount_max - p.boost_amount_min)
-    in_recovery_all = rec_valid & (rec_lo < times) & (times < rec_hi)
-    fwd_waived_all = env_at > env_next * r.forward_check_amp_waiver
-    implied_all = torch.where(interval_all > 0, 60.0 / interval_all,
-                              torch.full_like(interval_all, float("inf")))
+    strong_s1_all = (x.flags & STRONG_S1) != 0
+    in_recovery_all = (x.flags & IN_RECOVERY) != 0
+    fwd_waived_all = (x.flags & FWD_WAIVED) != 0
+    hist = p.stability_history_window
+    hist_t = torch.tensor(hist, dtype=dtype, device=dev)
+    kickstart = cfg.compat.kickstart_effective
 
     npd = _NP_DTYPE[dtype]
     base_interp = Interp(p.deviation_points, None, dtype, dev)
@@ -227,11 +217,12 @@ def classify(
     curve_low = torch.as_tensor(np.asarray(p.curve_low, npd), device=dev)
     curve_span = torch.as_tensor(np.asarray(p.curve_high, npd)
                                  - np.asarray(p.curve_low, npd), device=dev)
-    bpm_span = p.contractility_bpm_high - p.contractility_bpm_low
+    bpm_span = torch.tensor(p.contractility_bpm_high - p.contractility_bpm_low,
+                            dtype=dtype, device=dev)
 
     c = _Carry(
         pending_s2=torch.zeros(bsz, dtype=torch.bool, device=dev),
-        belief=start_bpm.to(dtype).clone(),
+        belief=x.start_belief.to(dtype).clone(),
         last_pos=torch.full((bsz,), -1, dtype=torch.int64, device=dev),
         prev_pos=torch.full((bsz,), -1, dtype=torch.int64, device=dev),
         last_strength=torch.zeros(bsz, dtype=dtype, device=dev),
@@ -247,17 +238,16 @@ def classify(
     ys = {f: [] for f in fields} if want_trace else {"peak_class": []}
 
     for t in range(cap):
-        pos, pos_nx = positions[:, t], pos_next[:, t]
-        envv = env_at[:, t]
-        strength, strength_nx = strengths[:, t], strength_next[:, t]
-        dev_t = dev_at_slot[:, t]
+        pos = positions[:, t]
+        strength = x.strength[:, t]
+        dev_t = x.deviation[:, t]
         active, is_last = active_all[:, t], is_last_all[:, t]
-        interval_sec = interval_all[:, t]
-        s2s1, s1s2 = s2s1_all[:, t], s1s2_all[:, t]
+        interval_sec = x.interval_sec[:, t]
+        s2s1 = x.s2_s1_ratio[:, t]
         pending = c.pending_s2
 
         # ---- pairing ratio (bpm_analysis.py:179-186) ----------------------
-        ring_mean = c.ring.to(dtype).sum(dim=1) / hist
+        ring_mean = c.ring.to(dtype).sum(dim=1) / hist_t
         pairing_ratio = torch.where(c.cand_count < hist,
                                     torch.full_like(ring_mean, 0.5), ring_mean)
         if kickstart:
@@ -288,7 +278,7 @@ def classify(
         severity = torch.clamp((s2s1 / max_expected - 1.0) / 2.0, 0, 1)
         penalty = p.penalty_amount_min + severity * (p.penalty_amount_max - p.penalty_amount_min)
         do_boost = ~do_penalty & strong_s1_all[:, t]
-        boost = boost_all[:, t]
+        boost = x.boost[:, t]
         conf = torch.where(do_penalty, conf - penalty,
                            torch.where(do_boost, conf + boost, conf))
         # Python max(0.0, min(1.0, nan)) == 1.0 (bpm_analysis.py:1197).
@@ -379,14 +369,14 @@ def classify(
                 s2_s1_ratio=s2s1, max_expected_ratio=max_expected,
                 penalty_amount=torch.where(do_penalty, penalty, nan_t),
                 boost_amount=torch.where(do_boost, boost, nan_t),
-                s1_s2_ratio=s1s2, interval_sec=interval_sec,
+                s1_s2_ratio=x.s1_s2_ratio[:, t], interval_sec=interval_sec,
                 max_interval_sec=max_interval,
                 interval_penalty=torch.where(do_ipen, ipen, nan_t),
                 final_conf=conf, paired=paired, lone_reason=lone_reason,
                 lone_conf=lone_conf, rhythm_score=rhythm_score,
                 actual_rr_sec=actual_rr, expected_rr_sec=expected_rr,
                 amp_score=amp_score, amp_ratio=amp_ratio,
-                implied_bpm=implied_all[:, t], belief=new_belief,
+                implied_bpm=x.implied_bpm[:, t], belief=new_belief,
                 belief_time_sec=belief_time)
             for k, v in step.items():
                 ys[k].append(v)
@@ -414,12 +404,82 @@ def classify(
 
     stacked = {k: torch.stack(v, dim=1) for k, v in ys.items()}
     peak_class = stacked["peak_class"].to(torch.int32)
-    if want_trace:
-        stacked["peak_class"] = peak_class
-        stacked["lone_reason"] = stacked["lone_reason"].to(torch.int32)
-        trace = ClassifierTrace(**stacked)
+    if not want_trace:
+        return peak_class, None
+    stacked["peak_class"] = peak_class
+    stacked["lone_reason"] = stacked["lone_reason"].to(torch.int32)
+    return peak_class, ClassifierTrace(**stacked)
+
+
+def classify(
+    envelope: torch.Tensor,
+    floor: torch.Tensor,
+    positions: torch.Tensor,
+    count: torch.Tensor,
+    sample_rate: int,
+    start_bpm: torch.Tensor,
+    cfg: AnalyzerConfig,
+    peak_bpm_time_sec=None,
+    recovery_end_time_sec=None,
+    want_trace: bool = True,
+) -> ClassifierResult:
+    """Run the classification over the raw-peak slots of every row.
+    ``want_trace=False`` keeps only ``peak_class`` (the preliminary pass)."""
+    p = cfg.pairing
+    r = cfg.rhythm
+    dtype = envelope.dtype
+    dev = envelope.device
+    bsz, n = envelope.shape
+    cap = positions.shape[1]
+    sr = torch.tensor(sample_rate, dtype=dtype, device=dev)
+    nan = float("nan")
+    count = count.long()
+
+    smoothed_dev, strengths = deviation_series(envelope, floor, positions, count, cfg)
+    # Deviation seen by slot t's pair attempt: the (t-1, t) midpoint value.
+    dev_at_slot = torch.cat([torch.full((bsz, 1), nan, dtype=dtype, device=dev),
+                             smoothed_dev], dim=1)
+
+    positions = positions.long()
+    env_at = take(envelope, torch.clamp(positions, 0, n - 1))
+    times = positions.to(dtype) / sr
+    pos_next = torch.cat([positions[:, 1:], torch.full((bsz, 1), n, dtype=torch.int64,
+                                                       device=dev)], dim=1)
+    env_next = torch.cat([env_at[:, 1:], env_at[:, -1:]], dim=1)
+    strength_next = torch.cat([strengths[:, 1:], strengths[:, -1:]], dim=1)
+
+    if peak_bpm_time_sec is not None and recovery_end_time_sec is not None:
+        rec_lo = peak_bpm_time_sec.to(dtype)[:, None]
+        rec_hi = recovery_end_time_sec.to(dtype)[:, None]
+        rec_valid = ~(torch.isnan(rec_lo) | torch.isnan(rec_hi))
     else:
-        trace = None
+        rec_lo = rec_hi = torch.zeros(bsz, 1, dtype=dtype, device=dev)
+        rec_valid = torch.zeros(bsz, 1, dtype=torch.bool, device=dev)
+
+    # ---- slot-only terms, for every slot at once -----------------------------
+    interval_all = (pos_next - positions).to(dtype) / sr
+    s2s1_all = strength_next / (strengths + 1e-9)
+    s1s2_all = strengths / (strength_next + 1e-9)
+    strong_s1_all = strengths > strength_next * p.s1_s2_boost_ratio
+    exceed_all = torch.clamp((s1s2_all - p.s1_s2_boost_ratio)
+                             / (p.boost_saturation_ratio - p.s1_s2_boost_ratio), 0, 1)
+    boost_all = p.boost_amount_min + exceed_all * (p.boost_amount_max - p.boost_amount_min)
+    in_recovery_all = rec_valid & (rec_lo < times) & (times < rec_hi)
+    fwd_waived_all = env_at > env_next * r.forward_check_amp_waiver
+    implied_all = torch.where(interval_all > 0, 60.0 / interval_all,
+                              torch.full_like(interval_all, float("inf")))
+
+    flags = (strong_s1_all.to(torch.uint8) * STRONG_S1
+             | in_recovery_all.to(torch.uint8) * IN_RECOVERY
+             | fwd_waived_all.to(torch.uint8) * FWD_WAIVED)
+    inputs = ScanInputs(
+        positions=positions.to(torch.int32), count=count.to(torch.int32),
+        start_belief=start_bpm.to(dtype).contiguous(), deviation=dev_at_slot,
+        interval_sec=interval_all, s2_s1_ratio=s2s1_all, s1_s2_ratio=s1s2_all,
+        strength=strengths.contiguous(), boost=boost_all, implied_bpm=implied_all,
+        flags=flags)
+    peak_class, trace = classify_kernel.classify_scan(inputs, n, sample_rate, cfg,
+                                                      want_trace=want_trace)
 
     is_beat = ((peak_class == types.S1_PAIRED)
                | (peak_class == types.LONE_S1_VALIDATED)

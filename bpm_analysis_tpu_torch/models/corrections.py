@@ -4,8 +4,9 @@ Port of ``bpm_analysis_tpu/models/corrections.py``.
 
 Stage 4 — ``correct_peaks_by_rhythm`` (bpm_analysis.py:1257-1306): greedy
 left-to-right conflict resolution against the median RR; sequential by
-construction, so a loop over candidate slots carrying the last accepted
-peak (per row).  Skipped for < 5 peaks.
+construction, so a scan over candidate slots carrying the last accepted
+peak (per row): the CUDA kernel ``csrc/rhythm_scan.cu`` on the card, its
+plain version :func:`rhythm_scan_plain` on the CPU.  Skipped for < 5 peaks.
 
 Stage 5 — ``_fix_rhythmic_discontinuities`` (bpm_analysis.py:1309-1412),
 iterated until an iteration corrects nothing, at most ``max_iterations``
@@ -23,6 +24,7 @@ import torch
 
 from ..config import AnalyzerConfig
 from ..ops import series
+from ..ops.cuda import rhythm_kernel
 from ..ops.find_peaks import compact_slots
 from ..ops.indexing import arange, scatter_drop, take
 from .. import types
@@ -34,6 +36,35 @@ class CorrectionResult(NamedTuple):
     classes: torch.Tensor         # (B, max_raw_peaks) int32 updated classes
     precorrection_classes: torch.Tensor
     overflowed: torch.Tensor      # (B,) bool
+
+
+def rhythm_scan_plain(pos: torch.Tensor, amp: torch.Tensor, count: torch.Tensor,
+                      threshold: torch.Tensor, sample_rate: int):
+    """Stage 4's greedy scan, one step per slot for every row at once: the
+    plain version of ``csrc/rhythm_scan.cu``.  Carries the last kept slot,
+    position and amplitude per row; returns (written (B, cap) bool, victim
+    (B, cap) int32: the slot each one unseated, or cap)."""
+    bsz, cap = pos.shape
+    dtype = amp.dtype
+    sr = torch.tensor(sample_rate, dtype=dtype, device=amp.device)
+    pos = pos.long()
+    valid = arange(cap, pos)[None, :] < count.long()[:, None]
+    last_slot = torch.zeros(bsz, dtype=torch.int64, device=pos.device)
+    last_pos, last_amp = pos[:, 0], amp[:, 0]
+    written, victim = [], []
+    for i in range(cap):
+        p, a, v = pos[:, i], amp[:, i], valid[:, i]
+        interval = (p - last_pos).to(dtype) / sr
+        act = v & (i > 0)
+        conflict = act & (interval < threshold)
+        replace = conflict & (a > last_amp)
+        w = act & ~(conflict & ~replace)              # drop: skip
+        victim.append(torch.where(replace, last_slot, cap))
+        written.append(w)
+        last_slot = torch.where(w, i, last_slot)
+        last_pos = torch.where(w, p, last_pos)
+        last_amp = torch.where(w, a, last_amp)
+    return torch.stack(written, dim=1), torch.stack(victim, dim=1).to(torch.int32)
 
 
 def rhythm_correction(positions: torch.Tensor, count: torch.Tensor,
@@ -55,25 +86,11 @@ def rhythm_correction(positions: torch.Tensor, count: torch.Tensor,
     median_rr = series.masked_median(rr, rr_valid)
     threshold = median_rr * cfg.correction.rr_correction_threshold_pct
 
-    # Scalar carry (last kept slot/pos/amp) per row; per-slot decisions.
-    last_slot = torch.zeros(bsz, dtype=torch.int64, device=positions.device)
-    last_pos, last_amp = pos[:, 0], amp[:, 0]
-    written, victim = [], []
-    for i in range(cap):
-        p, a, v = pos[:, i], amp[:, i], valid[:, i]
-        interval = (p - last_pos).to(dtype) / sr
-        act = v & (i > 0)
-        conflict = act & (interval < threshold)
-        replace = conflict & (a > last_amp)
-        w = act & ~(conflict & ~replace)              # drop: skip
-        victim.append(torch.where(replace, last_slot, cap))
-        written.append(w)
-        last_slot = torch.where(w, i, last_slot)
-        last_pos = torch.where(w, p, last_pos)
-        last_amp = torch.where(w, a, last_amp)
-    written = torch.stack(written, dim=1)
+    written, victim = rhythm_kernel.rhythm_scan(
+        pos.to(torch.int32), amp.contiguous(), count.to(torch.int32),
+        threshold.contiguous(), n, sample_rate)
     written[:, 0] = count > 0
-    unseated = scatter_drop(cap, torch.stack(victim, dim=1), True, False, torch.bool)
+    unseated = scatter_drop(cap, victim, True, False, torch.bool)
     kept = written & ~unseated
     out_pos, out_len = series.compact_valid(pos, kept, fill=n)
 

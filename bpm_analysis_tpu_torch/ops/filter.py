@@ -4,22 +4,29 @@ Port of ``bpm_analysis_tpu/ops/filter.py``.  The host-side design functions
 (:func:`butter_bandpass`, :func:`lfilter_zi`) are numpy copies.  The device
 side is the same block-affine formulation of the IIR recurrence
 ``s[n] = A s[n-1] + B x[n]``: split the signal into length-``L`` blocks; the
-in-block output is one Toeplitz matmul plus a rank-``m`` carry-in term, and
+in-block output is a Toeplitz product plus a rank-``m`` carry-in term, and
 the block carries compose through a length-``nb`` affine scan — here a
 Python loop over blocks, vectorized over the batch.  :func:`fir_decimate`
 is the antialias decimator of the north-star preprocessing path.
 
-Products stay full float32 on the card: the float32 matmuls below rely on
-``torch.backends.cuda.matmul.allow_tf32`` being False (PyTorch's default);
-TF32 products re-amplify through the recursive carry.
+Every product is a sum taken in a fixed order (:func:`ordered_matmul`,
+:func:`toeplitz_apply`): separate elementwise multiplies and adds, term by
+term in ascending order.  A library matmul picks its kernel, and so its
+association, from the whole shape, so a recording's filtered signal would
+depend on the batch it is filtered in; here each row's output is a
+function of that row alone, bit for bit, on any device.  On the card
+:func:`lfilter` is the CUDA kernel ``csrc/block_filter.cu`` (the same
+products in the same order); :func:`lfilter_plain` is its plain version.
+The helpers serve the sequence-sharded relay too (``parallel/seqshard.py``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from .cuda import filter_kernel
 from .indexing import arange, take
 
 
@@ -88,9 +95,10 @@ def _df2t_matrices(b: np.ndarray, a: np.ndarray):
 
 
 def _block_filter_tables(b: np.ndarray, a: np.ndarray, L: int):
-    """Host-side (float64) tables of the blocked lfilter: (A_L, G, U, T, b0)
+    """Host-side (float64) tables of the blocked lfilter: (A_L, G, U, h, b0)
     with ``A_L = A^L``, ``G[j] = (A^j)[0, :]``, ``U[i] = A^{L-1-i} B`` and
-    the strict-upper Toeplitz ``T[i, j] = h[j-1-i]``, ``h[d] = (A^d B)[0]``."""
+    the lags ``h[d] = (A^d B)[0]`` of the strict-upper Toeplitz
+    ``T[i, j] = h[j-1-i]``."""
     A, B, b0 = _df2t_matrices(b, a)
     m = A.shape[0]
     powers = np.empty((L + 1, m, m))
@@ -100,39 +108,91 @@ def _block_filter_tables(b: np.ndarray, a: np.ndarray, L: int):
     G = powers[:L, 0, :]
     U = np.einsum("lij,j->li", powers[L - 1::-1], B)
     h = np.einsum("lij,j->li", powers[:L], B)[:, 0]
-    ii, jj = np.indices((L, L))
-    d = jj - 1 - ii
-    T = np.where(d >= 0, h[np.clip(d, 0, L - 1)], 0.0)
-    return powers[L], G, U, T, b0
+    return powers[L], G, U, h, b0
+
+
+def ordered_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` (..., K) and ``w`` (K, N) as K separate
+    multiplies and K - 1 adds in ascending term order:
+    ``(x[0] w[0] + x[1] w[1]) + x[2] w[2] + ...``, whatever the shapes."""
+    acc = x[..., 0:1] * w[0]
+    for k in range(1, w.shape[0]):
+        acc = acc + x[..., k:k + 1] * w[k]
+    return acc
+
+
+def toeplitz_apply(X: torch.Tensor, h) -> torch.Tensor:
+    """``X @ T`` for the strict-upper Toeplitz ``T[i, j] = h[j-1-i]`` of
+    :func:`_block_filter_tables`, over the last axis of ``X`` (..., L):
+    ``y[i] = sum_d h[d] * x[i-1-d]``, one shifted multiply and add per lag
+    ``d``, in ascending ``d``.  ``h`` holds Python floats already rounded to
+    the working dtype."""
+    L = X.shape[-1]
+    y = torch.zeros_like(X)
+    for d in range(L - 1):
+        y[..., d + 1:] += X[..., :L - 1 - d] * h[d]
+    return y
+
+
+class BlockFilter(NamedTuple):
+    """The blocked filter's tables in the working dtype: ``A_LT = (A^L).T``,
+    ``U`` (L, m), ``GT = G.T`` (m, L), the Toeplitz lags ``h`` (Python
+    floats) and ``b0``."""
+    A_LT: torch.Tensor
+    U: torch.Tensor
+    GT: torch.Tensor
+    h: list
+    b0: float
+
+    @classmethod
+    def build(cls, b: np.ndarray, a: np.ndarray, L: int, dtype, device) -> "BlockFilter":
+        A_L, G, U, h, b0 = _block_filter_tables(b, a, L)
+        npd = np.float32 if dtype == torch.float32 else np.float64
+        h = [float(v) for v in np.asarray(h[:L - 1], npd)]
+
+        def table(t):
+            return torch.as_tensor(t, dtype=dtype, device=device)
+
+        return cls(table(A_L).T, table(U), table(G).T, h, b0)
+
+    def contributions(self, X: torch.Tensor) -> torch.Tensor:
+        """(B, nb, m) carry contribution of each block of ``X`` (B, nb, L)."""
+        return ordered_matmul(X, self.U)
+
+    def carry_scan(self, C: torch.Tensor, s: torch.Tensor):
+        """(exit state, (B, nb, m) carry-in of each block) of the block carry
+        scan from the entry state ``s`` (B, m)."""
+        carries = []
+        for k in range(C.shape[1]):
+            carries.append(s)
+            s = ordered_matmul(s, self.A_LT) + C[:, k]
+        return s, torch.stack(carries, dim=1)
+
+    def apply(self, X: torch.Tensor, S0: torch.Tensor) -> torch.Tensor:
+        """In-block outputs (B, nb, L) from the blocks and their carry-ins."""
+        return self.b0 * X + ordered_matmul(S0, self.GT) + toeplitz_apply(X, self.h)
 
 
 def lfilter(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi: torch.Tensor,
             block: int = 256) -> torch.Tensor:
     """scipy ``lfilter(b, a, x[r], zi=zi[r])[0]`` for every row of ``x``
-    (B, n), with ``zi`` (B, m), via the blocked formulation."""
-    dtype, dev = x.dtype, x.device
+    (B, n), with ``zi`` (B, m): the CUDA kernel ``csrc/block_filter.cu`` on
+    the card, :func:`lfilter_plain` on the CPU."""
+    return filter_kernel.lfilter(b, a, x, zi, block)
+
+
+def lfilter_plain(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi: torch.Tensor,
+                  block: int = 256) -> torch.Tensor:
+    """:func:`lfilter` via the blocked formulation in torch operations: the
+    plain version of ``csrc/block_filter.cu``, the same products in the same
+    order."""
     bsz, n = x.shape
     L = min(block, max(8, n))
-    A_L_np, G_np, U_np, T_np, b0 = _block_filter_tables(b, a, L)
-    A_L = torch.as_tensor(A_L_np, dtype=dtype, device=dev)
-    G = torch.as_tensor(G_np, dtype=dtype, device=dev)
-    U = torch.as_tensor(U_np, dtype=dtype, device=dev)
-    T = torch.as_tensor(T_np, dtype=dtype, device=dev)
-
+    bf = BlockFilter.build(b, a, L, x.dtype, x.device)
     nb = -(-n // L)
     X = torch.nn.functional.pad(x, (0, nb * L - n)).reshape(bsz, nb, L)
-    C = X @ U                                   # (B, nb, m) carry contributions
-
-    s = zi.to(dtype)
-    carries = []
-    A_LT = A_L.T
-    for k in range(nb):                         # carry-IN of each block
-        carries.append(s)
-        s = s @ A_LT + C[:, k]
-    S0 = torch.stack(carries, dim=1)            # (B, nb, m)
-
-    Y = b0 * X + S0 @ G.T + X @ T
-    return Y.reshape(bsz, -1)[:, :n]
+    _, S0 = bf.carry_scan(bf.contributions(X), zi.to(x.dtype))
+    return bf.apply(X, S0).reshape(bsz, -1)[:, :n]
 
 
 def filtfilt(b: np.ndarray, a: np.ndarray, x: torch.Tensor) -> torch.Tensor:
@@ -205,8 +265,8 @@ def fir_decimate(x: torch.Tensor, factor: int, taps_per_phase: int = 8) -> torch
     + p the strided convolution is one (M, factor) @ (factor, J) product
     ``Y = X @ Hp`` (``X[m, p] = xp[m*factor + p]``, ``Hp[p, j] =
     h[j*factor + p]``) plus J shifted column adds, ``y[m] = sum_j Y[m + j,
-    j]``.  The product is a plain ``torch.matmul`` in the input's dtype
-    (full float32 on the card: TF32 matmuls stay off)."""
+    j]``.  The product is :func:`ordered_matmul` in the input's dtype, so
+    each row's output is independent of the batch."""
     if factor <= 1:
         return x
     half = taps_per_phase * factor // 2
@@ -225,7 +285,7 @@ def fir_decimate(x: torch.Tensor, factor: int, taps_per_phase: int = 8) -> torch
     m_rows = out_len + n_phases - 1
     xp = torch.nn.functional.pad(x, (half, m_rows * factor - n - half))
     hpt = torch.as_tensor(np.ascontiguousarray(hp.T), dtype=x.dtype, device=x.device)
-    y2 = torch.matmul(xp.reshape(bsz, m_rows, factor), hpt)     # (B, M, J)
+    y2 = ordered_matmul(xp.reshape(bsz, m_rows, factor), hpt)   # (B, M, J)
     res = y2[:, 0:out_len, 0]
     for j in range(1, n_phases):
         res = res + y2[:, j:j + out_len, j]

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.filter import _block_filter_tables, _df2t_matrices, butter_bandpass, lfilter_zi
+from ..ops.filter import (BlockFilter, _df2t_matrices, butter_bandpass, lfilter_zi,
+                          ordered_matmul)
 from ..ops.indexing import arange
 from ..ops.quantile import _strided_anchors_of_padded
 from ..ops.rolling import _window_sums_of_padded, centered_bounds
@@ -144,9 +145,8 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
         return torch.as_tensor(t, dtype=dtype, device=dev)
 
     A_np, B_np, b0 = _df2t_matrices(b, a)
-    A_L_np, G_np, U_np, T_np, _ = _block_filter_tables(b, a, L)
-    A_T, Bv, A_L_T = table(A_np).T, table(B_np), table(A_L_np).T
-    G_T, U, T = table(G_np).T, table(U_np), table(T_np)
+    bf = BlockFilter.build(b, a, L, dtype, dev)
+    A_T, Bv = table(A_np).T, table(B_np)
     zi = table(lfilter_zi(b, a))[None, :]
     idx, ndev = mesh.sp_index, mesh.sp
 
@@ -162,16 +162,8 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
         for j in range(us.shape[1]):
             u = us[:, j:j + 1]
             ys.append(b0 * u[:, 0] + s[:, 0])
-            s = s @ A_T + Bv * u
+            s = ordered_matmul(s, A_T) + Bv * u
         return s, torch.stack(ys, dim=1)
-
-    def exit_from(C, entry):
-        """(exit state, carry-in of each block) of the block carry scan."""
-        s, carries = entry, []
-        for k in range(nb):
-            carries.append(s)
-            s = s @ A_L_T + C[:, k]
-        return s, torch.stack(carries, dim=1)
 
     def relay(C, s_first, reverse):
         """The entry-state relay along the row, in sample order (reversed
@@ -183,17 +175,17 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
         mine = None
         for src, dst in zip(order_[:-1], order_[1:]):
             if idx == src:
-                mine = exit_from(C, entry)
+                mine = bf.carry_scan(C, entry)
             passed = all_gather(mesh, mine[0] if idx == src else torch.zeros_like(s_first),
                                 "sp")
             if idx == dst:
                 entry = passed[src]
         if idx == order_[-1]:
-            mine = exit_from(C, entry)
+            mine = bf.carry_scan(C, entry)
         return mine
 
     def local_apply(X, S0):
-        return (b0 * X + S0 @ G_T + X @ T).reshape(bsz, blk)
+        return bf.apply(X, S0).reshape(bsz, blk)
 
     # --- forward pass -------------------------------------------------------
     head = edge_broadcast(x[:, :padlen + 1], 0)               # x[0 .. padlen]
@@ -201,7 +193,7 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
     front_ext = 2 * head[:, :1] - head[:, 1:].flip(1)
     s_fwd0, _ = steps(zi * front_ext[:, :1], front_ext)
     X = x.reshape(bsz, nb, L)
-    s_exit, S0 = relay(X @ U, s_fwd0, reverse=False)
+    s_exit, S0 = relay(bf.contributions(X), s_fwd0, reverse=False)
     y = local_apply(X, S0)
 
     # --- forward-filter the back extension (every rank) ---------------------
@@ -211,7 +203,7 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
     # --- backward pass over the reversed signal -----------------------------
     s_bwd0, _ = steps(zi * y_back[:, -1:], y_back.flip(1))
     Xr = y.flip(1).reshape(bsz, nb, L)
-    _, S0r = relay(Xr @ U, s_bwd0, reverse=True)
+    _, S0r = relay(bf.contributions(Xr), s_bwd0, reverse=True)
     z = local_apply(Xr, S0r).flip(1)
     return z if batched else z[0]
 

@@ -6,8 +6,8 @@
 Run from the repository root.  Phases, each printed on its own line with
 the seconds since start:
 
-1. device: the card's name and power limit (``nvidia-smi``);
-2. build: both CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
+1. device: the card's name, power limit and maximum SM clock (``nvidia-smi``);
+2. build: the five CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
    parallel, with each build's time;
 3. each kernel vs its plain version on the card: the knot kernel's fast
    division against IEEE division over 2^30 operand pairs; the
@@ -20,11 +20,19 @@ the seconds since start:
    6037 and 24575 keys, the tiled design's edges (a ragged last tile, a row
    shorter than one tile, all-equal and all-missing windows, heavy ties,
    keys on both sides of a 24-bit prefix boundary) and engine-shaped series;
+   the classifier and rhythm scans against ``classifier.scan_plain`` and
+   ``corrections.rhythm_scan_plain`` on four one-minute recordings (rows cut
+   to 0, 1, 2 and 4 peaks, a row at full capacity), float32 and float64,
+   kick-start off and on, with and without the trace: every field equal;
+   the blocked filter against ``ops/filter.lfilter_plain`` (short rows, a
+   ragged last block, 2-6 states, both dtypes, the main path's length);
 4. the main path at full width: 16 ten-minute recordings (302 Hz,
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
-   at float32, stride 64, ``quantile_backend="auto"``; launch counts,
-   warm wall time, a per-stage breakdown, and the knot kernel's time, bound
-   and plain-version time on the main path's own inputs;
+   at float32, stride 64, ``quantile_backend="auto"``; launch counts (the
+   filter kernel twice, the knot kernel twice, the classifier scan twice,
+   the rhythm scan once), warm wall time, a per-stage breakdown, and each
+   of those kernels against its plain version on the main path's own
+   inputs with its time, bound and plain-version time;
 5. accuracy against the CPU reference's beats and BPM curves
    (``bench_cpu_baseline.json``): worst beat F1 >= 0.99, BPM MAE < 0.5;
 6. the card against the port on the CPU, recordings 0 and 1;
@@ -36,7 +44,8 @@ the seconds since start:
    ``torch.nanquantile`` yardstick, and the card against the CPU;
 8. the default configuration (stride 1: the exact wavelet-tree floor) in
    float64 on the vulpine recording of ``tests/golden/vulpine_oracle.npz``,
-   with both prominence backends, against the golden counts and beats;
+   with both prominence backends, against the golden counts and beats (the
+   float64 scan kernels);
 9. the host path at full width: phase 4's 16 recordings written as int16
    302 Hz WAVs through ``host_batch.analyze_files_batched`` at phase 4's
    configuration with every artifact (launch counts, the phase-5 accuracy
@@ -56,9 +65,11 @@ the seconds since start:
    gloo ranks, each holding a quarter of a two-hour recording on the card,
    hold the sharded envelope, quantile and filtfilt against the local
    functions; the host — ``analyze_files_batched(mesh=...)`` on 2 ranks
-   against phase 9's artifacts; and ``utils.profiling.device_trace`` around
-   both kernels, with their CUDA times from the trace beside the CUDA-event
-   times.
+   against an unsharded run at one file a batch, and both against phase 9's
+   chunk of 16 (equal positions and CSV: a recording's result does not
+   depend on its batch); and ``utils.profiling.device_trace`` around
+   both quantile kernels, with their CUDA times from the trace beside the
+   CUDA-event times.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result.  Any failing phase exits non-zero before the result line; without a
@@ -118,6 +129,13 @@ OPS_DESCENT_STEP, DESCENT_STEPS = 5, 32
 PEAK_ISSUE_OPS = 132 * 128 * 1.98e9
 OPS_DIGIT_ROUND, DIGIT_ROUNDS, OPS_KEY_ONCE = 3, 4, 1
 OPS_ANCHOR = DIGIT_ROUNDS * 256 * 2
+# The scan kernels' bound is the dependent chain of one step times the slots
+# (csrc/classify_scan.cu and csrc/rhythm_scan.cu count their chains): ALU
+# operations at 4 cycles each and IEEE divisions at 40 (div.rn.f32's
+# subroutine), at the card's maximum SM clock as nvidia-smi reports it.
+CLASSIFY_CHAIN_ALU, CLASSIFY_CHAIN_DIV = 35, 4
+RHYTHM_CHAIN_ALU, RHYTHM_CHAIN_DIV = 6, 1
+ALU_CYCLES, DIV_CYCLES = 4, 40
 STRIDED_RTOL = 1e-6     # tests/test_pallas_quantile.py:26
 # Phase 10: the fleet means of 4 ranks' partial sums against one sum over
 # the batch, both float32: 16 terms summed in another order.
@@ -337,6 +355,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def once_ms(fn) -> tuple:
+    """(result, milliseconds on the card) of one call, by CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def knot_bound(pos, val, count, n, window, q, min_periods, stride, min_spacing,
                n_valid) -> tuple:
     """Least time for the kernel's work on these inputs: bytes moved (each
@@ -415,18 +444,226 @@ def nanquantile_rows(x, window, q, min_periods, stride):
     return torch.cat(out)
 
 
+def scan_bound(x, want_trace: bool, clock_hz: float) -> tuple:
+    """Least time for the classifier scan over ``x`` (a ``ScanInputs``):
+    bytes (the slot inputs the kernel reads and the outputs it writes, once
+    each) over HBM bandwidth, and the capacity times one step's dependent
+    chain at the SM clock.  Returns (ms, 'bytes'|'operations')."""
+    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel
+
+    bsz, cap = x.positions.shape
+    t = x.deviation.element_size()
+    per_slot = 4 + 5 * t + 1 + 4                       # inputs, peak_class
+    if want_trace:
+        per_slot += len(classify_kernel.KERNEL_FIELDS) * t + 4 + 1
+    t_bytes = (bsz * cap * per_slot + bsz * (4 + t)) / PEAK_BYTES_S * 1e3
+    cycles = cap * (CLASSIFY_CHAIN_ALU * ALU_CYCLES + CLASSIFY_CHAIN_DIV * DIV_CYCLES)
+    t_ops = cycles / clock_hz * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rhythm_bound(pos, amp, clock_hz: float) -> tuple:
+    """Least time for the rhythm scan: positions and amplitudes read and
+    written / victim written once, or the capacity times one step's chain."""
+    bsz, cap = pos.shape
+    t_bytes = bsz * (cap * (4 + amp.element_size() + 1 + 4) + 4 + amp.element_size()) \
+        / PEAK_BYTES_S * 1e3
+    t_ops = cap * (RHYTHM_CHAIN_ALU * ALU_CYCLES + RHYTHM_CHAIN_DIV * DIV_CYCLES) \
+        / clock_hz * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def trace_error(got, exp) -> float:
+    """Max abs difference between two (peak_class, trace-or-None) results,
+    over the classes and every trace field; inf where their NaNs differ."""
+    pairs = [(got[0], exp[0])]
+    if exp[1] is not None:
+        pairs += list(zip(got[1], exp[1]))
+    worst = 0.0
+    for g, e in pairs:
+        g, e = g.double(), e.double()
+        if not torch.equal(torch.isnan(g), torch.isnan(e)):
+            return float("inf")
+        fin = ~torch.isnan(e)
+        if fin.any():
+            worst = max(worst, float((g[fin] - e[fin]).abs().max()))
+    return worst
+
+
+def rhythm_error(got, exp) -> float:
+    """Max abs difference between two (written, victim) results."""
+    return float(max((got[0].int() - exp[0].int()).abs().max(),
+                     (got[1] - exp[1]).abs().max()))
+
+
+def scan_input_cases(x, n):
+    """The classifier scan's inputs as the path gave them, with rows 0-3 cut
+    to 0, 1, 2 and 4 raw peaks, and cut to row 0's count (a row at full
+    capacity)."""
+    from bpm_analysis_tpu_torch.models.classifier import ScanInputs
+
+    cases = [("path", x)]
+    pos, count = x.positions.clone(), x.count.clone()
+    for r, k in enumerate((0, 1, 2, 4)[:pos.shape[0]]):
+        pos[r, k:] = n
+        count[r] = k
+    cases.append(("few_peaks", x._replace(positions=pos, count=count)))
+    k = int(x.count[0])
+    if k > 0:
+        cut = {f: (v[:, :k].contiguous() if v.dim() == 2 else v)
+               for f, v in x._asdict().items()}
+        cut["count"] = torch.clamp(x.count, max=k)
+        cases.append(("full_capacity", ScanInputs(**cut)))
+    return cases
+
+
+def scan_config(dtype: str, kickstart: bool):
+    """The card tests' small configuration (512 raw-peak slots)."""
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig, CompatConfig, RuntimeConfig
+
+    return AnalyzerConfig(
+        runtime=RuntimeConfig(max_raw_peaks=512, max_troughs=512, max_candidates=256,
+                              extrema_capacity=4096, noise_quantile_stride=64,
+                              quantile_backend="auto", dtype=dtype),
+        compat=CompatConfig(kickstart_effective=kickstart))
+
+
+def scan_calls(batch, cfg) -> tuple:
+    """Drive the main path on the card once and return the arguments of its
+    (classify_scan calls, rhythm_scan calls)."""
+    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, rhythm_kernel
+
+    c_calls, r_calls = [], []
+    counted_run(batch, cfg, {(classify_kernel, "classify_scan"): c_calls,
+                             (rhythm_kernel, "rhythm_scan"): r_calls})
+    return c_calls, r_calls
+
+
+def check_scan_cases(dev) -> tuple:
+    """Both scan kernels against their plain versions on the card, on 4
+    one-minute recordings plus the cut cases of ``scan_input_cases``, in
+    float32 and float64, kick-start off and on, with and without the trace.
+    Returns the worst (classify, rhythm) max abs error."""
+    from bpm_analysis_tpu_torch import synth
+    from bpm_analysis_tpu_torch.models import classifier, corrections
+    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, rhythm_kernel
+
+    batch = np.stack([synth._quantize_int16(synth.synth_recording(s)[:SR * 60])
+                      for s in range(4)]).astype(np.float32)
+    worst_c = worst_r = 0.0
+    for dtype in ("float32", "float64"):
+        for kickstart in (False, True):
+            cfg = scan_config(dtype, kickstart)
+            c_calls, r_calls = scan_calls(batch.astype(dtype), cfg)
+            (x, n, sr, _), _ = c_calls[-1]
+            for name, xc in scan_input_cases(x, n):
+                for want_trace in (False, True):
+                    got = classify_kernel.classify_scan(xc, n, sr, cfg, want_trace=want_trace)
+                    exp = classifier.scan_plain(xc, sr, cfg, want_trace=want_trace)
+                    torch.cuda.synchronize()
+                    err = trace_error(got, exp)
+                    worst_c = max(worst_c, err)
+                    check(err == 0, f"classify kernel differs from its plain version on "
+                                    f"{name} ({dtype}, kickstart {kickstart}, trace "
+                                    f"{want_trace}): max abs err {err}")
+            (pos, amp, count, threshold, n, sr), _ = r_calls[-1]
+            got = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n, sr)
+            exp = corrections.rhythm_scan_plain(pos, amp, count, threshold, sr)
+            torch.cuda.synchronize()
+            worst_r = max(worst_r, rhythm_error(got, exp))
+            check(worst_r == 0, f"rhythm kernel differs from its plain version ({dtype})")
+            log(f"  scan kernels vs plain [{dtype}, kickstart {kickstart}]: classify on "
+                f"{[c[0] for c in scan_input_cases(x, n)]} x trace on/off, max abs err "
+                f"{worst_c}; rhythm written/victim equal")
+    return worst_c, worst_r
+
+
+def filter_bound(x, L: int, m: int) -> tuple:
+    """Least time for the blocked filter of ``x`` (B, n): the row read and
+    written once over HBM bandwidth, and its unfused operations (block
+    contributions, the carry scan, each output's carry-in product and
+    in-block Toeplitz sum) over the float32 peak.  Returns (ms,
+    'bytes'|'operations')."""
+    bsz, n = x.shape
+    nb = -(-n // L)
+    pos = np.arange(n) % L                       # each output's lag count
+    ops_row = (nb * (L * m + (L - 1) * m)        # C = X @ U
+               + nb * (m * m + (m - 1) * m + m)  # the carry scan
+               + n * (1 + m + (m - 1) + 2)       # b0 x, S0 @ G^T, two adds
+               + 2 * int(pos.sum()))             # the Toeplitz lags
+    t_ops = bsz * ops_row / PEAK_F32_FLOPS * 1e3
+    t_bytes = (2 * x.numel() + bsz * m) * x.element_size() / PEAK_BYTES_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def filter_cases():
+    """(name, b, a, x, zi) for the blocked filter kernel: rows shorter than
+    one block, a ragged last block, band-pass orders 1-3 (2-6 states), both
+    dtypes, and phase 4's batch length."""
+    from bpm_analysis_tpu_torch.ops import filter as filt
+
+    rng = np.random.RandomState(23)
+    cases = []
+    for name, order, shape, dtype in (("short_rows", 2, (3, 5), np.float32),
+                                      ("ragged_block", 2, (4, 1000), np.float32),
+                                      ("order_1", 1, (2, 3000), np.float32),
+                                      ("order_3_f64", 3, (2, 3000), np.float64),
+                                      ("float64", 2, (4, 5000), np.float64),
+                                      ("engine_length", 2, (BATCH, 181230), np.float32)):
+        b, a = filt.butter_bandpass(order, 20.0, 150.0, SR)
+        x = (rng.randn(*shape) * 500).astype(dtype)
+        zi = filt.lfilter_zi(b, a)[None, :] * x[:, :1]
+        cases.append((name, b, a, x, np.ascontiguousarray(zi.astype(dtype))))
+    return cases
+
+
+def check_filter_cases(dev) -> float:
+    """The blocked filter kernel against ``lfilter_plain`` on the card:
+    equal bit for bit.  Returns the max abs error (0)."""
+    from bpm_analysis_tpu_torch.ops import filter as filt
+    from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
+
+    worst = 0.0
+    for name, b, a, x, zi in filter_cases():
+        xt, zt = torch.from_numpy(x).to(dev), torch.from_numpy(zi).to(dev)
+        got = filter_kernel.lfilter(b, a, xt, zt)
+        exp = filt.lfilter_plain(b, a, xt, zt)
+        torch.cuda.synchronize()
+        err = float((got - exp).abs().max())
+        worst = max(worst, err)
+        log(f"  filter kernel vs plain [{name}] {x.shape} {x.dtype}: max abs err {err}")
+        check(torch.equal(got, exp), f"filter kernel differs from its plain version on {name}")
+    return worst
+
+
 def reset_launches():
-    from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, quantile_kernel
+    from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
+                                                 quantile_kernel, rhythm_kernel)
 
     knot_kernel.launches = 0
     quantile_kernel.launches = 0
+    classify_kernel.launches = 0
+    rhythm_kernel.launches = 0
+    filter_kernel.launches = 0
 
 
 def read_launches() -> dict:
-    from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, quantile_kernel
+    from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
+                                                 quantile_kernel, rhythm_kernel)
 
     return {"knot_quantile": knot_kernel.launches,
-            "strided_quantile": quantile_kernel.launches}
+            "strided_quantile": quantile_kernel.launches,
+            "classify_scan": classify_kernel.launches,
+            "rhythm_scan": rhythm_kernel.launches,
+            "block_filter": filter_kernel.launches}
+
+
+# Launches of one batch through preprocess and analyze_batch: the filtfilt's
+# two passes, two classifier passes, one rhythm correction, and the noise
+# floor's quantile kernel twice.
+SCANS = {"classify_scan": 2, "rhythm_scan": 1}
+AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, **SCANS, "block_filter": 2}
+PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, **SCANS, "block_filter": 2}
 
 
 def run_main_path(batch_np, cfg, device):
@@ -501,7 +738,8 @@ def build_all() -> dict:
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("knot_quantile", "strided_quantile")
+    names = ("knot_quantile", "strided_quantile", "classify_scan", "rhythm_scan",
+             "block_filter")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         return dict(zip(names, pool.map(timed, names)))
 
@@ -637,8 +875,12 @@ def check_vulpine_default(card, dev):
                "raw_peak_count": int(res.raw_peak_count[0]),
                "start_bpm": float(res.start_bpm[0]),
                "peak_bpm_time": float(res.peak_bpm_time[0]), "final_count": count}
+        launches = read_launches()
         log(f"  vulpine, default config, prominence_backend={backend!r}, float64: "
-            f"{seconds:.2f}s on {card}; {got}; launches {read_launches()}")
+            f"{seconds:.2f}s on {card}; {got}; launches {launches}")
+        check(launches == {"knot_quantile": 0, "strided_quantile": 0, **SCANS,
+                           "block_filter": 0},
+              f"{backend}: expected the float64 scan kernels only, got {launches}")
         check(got["trough_count"] == len(oracle["sanitized_troughs"]),
               f"{backend}: trough count {got['trough_count']}")
         check(got["raw_peak_count"] == len(oracle["all_raw_peaks"]),
@@ -796,8 +1038,8 @@ def check_host_path(card, cfg, batch_i16, res_mem, oracle, tmp):
     launches = read_launches()
     check(errors == [], f"batched host errors: {errors[:3]}")
     log(f"batched host, {BATCH} files in one chunk: kernel launches {launches}")
-    check(launches == {"knot_quantile": 2, "strided_quantile": 0},
-          f"expected 2 knot-kernel launches on the host chunk, got {launches}")
+    check(launches == AUTO_LAUNCHES,
+          f"expected {AUTO_LAUNCHES} launches on the host chunk, got {launches}")
     for p in paths:
         base = os.path.splitext(os.path.basename(p))[0]
         for suffix in ARTIFACTS:
@@ -892,7 +1134,7 @@ def check_host_path(card, cfg, batch_i16, res_mem, oracle, tmp):
     wall_n = time.perf_counter() - t0
     launches_n = read_launches()
     check(errors == [], f"native-rate errors: {errors[:3]}")
-    check(launches_n["knot_quantile"] == 2, f"native-rate launches {launches_n}")
+    check(launches_n == AUTO_LAUNCHES, f"native-rate launches {launches_n}")
     log(f"native rate, 2 files: wall {wall_n:.3f}s = {2 * synth.MINUTES / wall_n:.2f} "
         f"audio-min/s on {card}; "
         f"launches {launches_n}; lanes: {lanes_text(lanes_n)}")
@@ -1120,8 +1362,8 @@ def check_scale_out(card, cfg, batch, res, best, oracle, host_run, knot, strided
         f"warm wall {r0['wall']:.3f}s = {BATCH * synth.MINUTES / r0['wall']:.2f} audio-min/s "
         f"(phase 4, one process: {best:.3f}s = {BATCH * synth.MINUTES / best:.2f}) on {card}; "
         f"launches per rank {[r['launches'] for r in ranks]}")
-    check(all(r["launches"] == {"knot_quantile": 2, "strided_quantile": 0} for r in ranks),
-          f"dp: expected 2 knot-kernel launches per rank, got {[r['launches'] for r in ranks]}")
+    check(all(r["launches"] == AUTO_LAUNCHES for r in ranks),
+          f"dp: expected {AUTO_LAUNCHES} per rank, got {[r['launches'] for r in ranks]}")
     exp_count = res.final_count.cpu().numpy()
     exp_pos = res.final_positions.cpu().numpy()
     differ = int((r0["final_positions"] != exp_pos).sum())
@@ -1188,8 +1430,8 @@ def check_scale_out(card, cfg, batch, res, best, oracle, host_run, knot, strided
 
     # The host: analyze_files_batched(mesh=...) on 2 ranks, two of phase 9's
     # WAVs, one file a rank.  Held to the unsharded run at the ranks' batch
-    # shape (one file a chunk): the filter's matmuls round by batch shape,
-    # so phase 9's chunk of 16 is compared, not gated.
+    # shape (one file a chunk), and both to phase 9's chunk of 16: a
+    # recording's beats and CSV do not depend on its batch (ROADMAP C6).
     paths, results9, out9 = host_run
     paths = paths[:2]
     out_u = os.path.join(tmp, "unsharded_b1")
@@ -1224,10 +1466,13 @@ def check_scale_out(card, cfg, batch, res, best, oracle, host_run, knot, strided
             f"of 16; {len(np.setxor1d(exp, b16))} positions differ "
             f"{np.setxor1d(exp, b16)[:10].tolist()}; beat F1 {beat_f1(exp / SR, b16 / SR):.6f}"
             f"; CSV against phase 9's: {csv or 'equal'}")
+        check(np.array_equal(exp, b16) and csv is None,
+              f"{base}: one file a batch differs from phase 9's chunk of 16 (C6)")
     gate_curves(host_curves({p: hosts[0]["rows"][p] for p in paths}, paths, SR), oracle,
                 (0, 1), "phase 10 host mesh")
     log("  host mesh artifacts equal the unsharded run's at one file a batch (CSV, summary, "
-        "settings byte-equal; debug log within one amplitude quantum); positions equal")
+        "settings byte-equal; debug log within one amplitude quantum); positions and CSV "
+        "equal to phase 9's chunk of 16")
 
     profiled_kernels(card, knot, strided, tmp)
     log(f"phase 10 scale-out: ok in {time.perf_counter() - t_phase:.1f}s")
@@ -1242,7 +1487,10 @@ def main() -> int:
     from bpm_analysis_tpu_torch import synth
     from bpm_analysis_tpu_torch.models import noise_floor
     from bpm_analysis_tpu_torch.ops import knot_quantile as kq
-    from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, quantile_kernel
+    from bpm_analysis_tpu_torch.models import classifier, corrections
+    from bpm_analysis_tpu_torch.ops import filter as filt
+    from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
+                                                 quantile_kernel, rhythm_kernel)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1255,16 +1503,22 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
+    clock_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
     log(f"phase 1 device: {kind} (count {count}); torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; max SM clock {clock_hz / 1e6:.0f} MHz")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on; the filter's float32 products must stay exact")
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     builds = build_all()
-    knot_kernel._library()
-    quantile_kernel._library()
+    for wrapper in (knot_kernel, quantile_kernel, classify_kernel, rhythm_kernel,
+                    filter_kernel):
+        wrapper._library()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
     from bpm_analysis_tpu_torch.kernels import build
@@ -1279,8 +1533,10 @@ def main() -> int:
     check(mismatches == 0, "the knot kernel's fast division differs from IEEE division")
     knot_err = check_knot_cases(dev)
     strided_err = check_strided_cases(dev)
+    classify_err, rhythm_err = check_scan_cases(dev)
+    filter_err = check_filter_cases(dev)
     log(f"phase 3 kernels vs plain: ok (knot rtol {RTOL} atol {ATOL}; strided rtol "
-        f"{STRIDED_RTOL})")
+        f"{STRIDED_RTOL}; scans equal)")
 
     # ---- 4. main path at full width ----------------------------------------
     cfg = engine_config()
@@ -1294,12 +1550,14 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"first run (cold): {time.perf_counter() - t0:.2f}s")
 
-    captured = []
+    captured, c_captured, r_captured, f_captured = [], [], [], []
     res, launches = counted_run(batch, cfg, {
-        (noise_floor.knot_kernel, "knot_quantile_anchors"): captured})
+        (noise_floor.knot_kernel, "knot_quantile_anchors"): captured,
+        (classify_kernel, "classify_scan"): c_captured,
+        (rhythm_kernel, "rhythm_scan"): r_captured,
+        (filter_kernel, "lfilter"): f_captured})
     log(f"kernel launches on the main path: {launches}")
-    check(launches == {"knot_quantile": 2, "strided_quantile": 0},
-          f"expected 2 knot-kernel launches and none of the strided kernel, got {launches}")
+    check(launches == AUTO_LAUNCHES, f"expected {AUTO_LAUNCHES}, got {launches}")
 
     overflowed = res.overflowed.cpu().numpy()
     final_count = res.final_count.cpu().numpy()
@@ -1336,6 +1594,54 @@ def main() -> int:
     bound_ms, bound_by = knot_bound(*a, **k)
     log(f"knot kernel at the main path's shapes: {kernel_ms:.4f} ms (plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}) on {card}")
+
+    # Both scan kernels against their plain versions at the main path's own
+    # inputs (the preliminary and the main classifier pass, the rhythm
+    # correction), each timed on its last call.
+    real_classify, real_rhythm = classify_kernel.classify_scan, rhythm_kernel.rhythm_scan
+    scan_ms = {}
+    for label, (a, k) in zip(("preliminary", "main"), c_captured):
+        got = real_classify(*a, **k)
+        exp, ms = once_ms(lambda: classifier.scan_plain(a[0], *a[2:], **k))
+        err = trace_error(got, exp)
+        classify_err = max(classify_err, err)
+        log(f"  classify kernel vs plain [main path, {label} pass] {tuple(a[0].positions.shape)}"
+            f", trace {k['want_trace']}: max abs err {err} over the classes and "
+            f"{0 if exp[1] is None else len(exp[1])} trace fields; plain {ms:.1f} ms")
+        check(err == 0, f"classify kernel differs from its plain version on the {label} pass")
+        scan_ms["classify_plain"] = ms
+    classify_call = c_captured[-1]
+    a, k = classify_call
+    c_kernel_ms = cuda_ms(lambda: real_classify(*a, **k), 20)
+    c_bound_ms, c_bound_by = scan_bound(a[0], k["want_trace"], clock_hz)
+    log(f"classify kernel at the main path's shapes (main pass): {c_kernel_ms:.4f} ms (plain "
+        f"{scan_ms['classify_plain']:.1f} ms, bound {c_bound_ms:.5f} ms by {c_bound_by}) "
+        f"on {card}")
+    rhythm_call = r_captured[-1]
+    a, k = rhythm_call
+    got = real_rhythm(*a, **k)
+    exp, r_plain_ms = once_ms(lambda: corrections.rhythm_scan_plain(*a[:4], a[5]))
+    rhythm_err = max(rhythm_err, rhythm_error(got, exp))
+    check(rhythm_err == 0, "rhythm kernel differs from its plain version on the main path")
+    r_kernel_ms = cuda_ms(lambda: real_rhythm(*a, **k), 50)
+    r_bound_ms, r_bound_by = rhythm_bound(a[0], a[1], clock_hz)
+    log(f"rhythm kernel at the main path's shapes {tuple(a[0].shape)}: written and victim "
+        f"equal; {r_kernel_ms:.4f} ms (plain {r_plain_ms:.1f} ms, bound {r_bound_ms:.5f} ms by "
+        f"{r_bound_by}) on {card}")
+    real_filter = filter_kernel.lfilter
+    for label, (a, k) in zip(("forward", "backward"), f_captured):
+        got = real_filter(*a, **k)
+        exp, f_plain_ms = once_ms(lambda: filt.lfilter_plain(*a, **k))
+        err = float((got - exp).abs().max())
+        filter_err = max(filter_err, err)
+        check(torch.equal(got, exp),
+              f"filter kernel differs from its plain version on the {label} pass")
+    f_kernel_ms = cuda_ms(lambda: real_filter(*a, **k), 20)
+    f_L = min(256, max(8, a[2].shape[1]))
+    f_bound_ms, f_bound_by = filter_bound(a[2], f_L, len(a[1]) - 1)
+    log(f"filter kernel at the main path's shapes {tuple(a[2].shape)}: both passes equal; "
+        f"{f_kernel_ms:.4f} ms (plain {f_plain_ms:.1f} ms, bound {f_bound_ms:.5f} ms by "
+        f"{f_bound_by}) on {card}")
     log("phase 4 main path: ok")
 
     # ---- 5. accuracy against the CPU reference -----------------------------
@@ -1355,9 +1661,7 @@ def main() -> int:
     res_b2, launches_b2 = counted_run(batch, cfg_b2, {
         (quantile_kernel, "strided_quantile_anchors"): s_captured})
     log(f"kernel launches on the strided-kernel path: {launches_b2}")
-    check(launches_b2 == {"knot_quantile": 0, "strided_quantile": 2},
-          f"expected 2 strided-kernel launches and none of the knot kernel, got "
-          f"{launches_b2}")
+    check(launches_b2 == PALLAS_LAUNCHES, f"expected {PALLAS_LAUNCHES}, got {launches_b2}")
     overflowed = res_b2.overflowed.cpu().numpy()
     final_count = res_b2.final_count.cpu().numpy()
     log(f"final beats per recording: min {final_count.min()} max {final_count.max()}; "
@@ -1434,6 +1738,42 @@ def main() -> int:
         "bound_ms": s_bound_ms,
         "bound_by": s_bound_by,
         "library_ms": s_library_ms,
+    }, {
+        "name": "classify_scan",
+        "route": "cuda",
+        "source": "bpm_analysis_tpu_torch/csrc/classify_scan.cu",
+        "replaces": "bpm_analysis_tpu/models/classifier.py:465",
+        "launches": launches["classify_scan"],
+        "max_abs_err": classify_err,
+        "ms": c_kernel_ms,
+        "plain_ms": scan_ms["classify_plain"],
+        "bound_ms": c_bound_ms,
+        "bound_by": c_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "rhythm_scan",
+        "route": "cuda",
+        "source": "bpm_analysis_tpu_torch/csrc/rhythm_scan.cu",
+        "replaces": "bpm_analysis_tpu/models/corrections.py:92",
+        "launches": launches["rhythm_scan"],
+        "max_abs_err": rhythm_err,
+        "ms": r_kernel_ms,
+        "plain_ms": r_plain_ms,
+        "bound_ms": r_bound_ms,
+        "bound_by": r_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "block_filter",
+        "route": "cuda",
+        "source": "bpm_analysis_tpu_torch/csrc/block_filter.cu",
+        "replaces": "bpm_analysis_tpu/ops/filter.py:136",
+        "launches": launches["block_filter"],
+        "max_abs_err": filter_err,
+        "ms": f_kernel_ms,
+        "plain_ms": f_plain_ms,
+        "bound_ms": f_bound_ms,
+        "bound_by": f_bound_by,
+        "library_ms": None,
     }]}
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps(table), flush=True)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (knot quantile, strided quantile) against their plain
-versions, on the card.
+"""The CUDA kernels (knot quantile, strided quantile, classifier scan,
+rhythm scan, blocked filter) against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The machine
 with the card has no JAX, so run these without the suite's conftest (which
@@ -12,10 +12,149 @@ import pytest
 import torch
 
 import chip_smoke
+import test_torch_filter_batch
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
-from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, quantile_kernel
+from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
+                                             quantile_kernel, rhythm_kernel)
 
 CASES = chip_smoke.kernel_cases()
+FILTER_CASES = chip_smoke.filter_cases()
+_SCAN_CALLS = {}
+
+
+def _scan_calls(dtype: str, kickstart: bool):
+    """The scan kernels' arguments on the main path of 4 one-minute
+    recordings on the card (chip_smoke's phase-3 cases)."""
+    key = (dtype, kickstart)
+    if key not in _SCAN_CALLS:
+        from bpm_analysis_tpu_torch import synth
+
+        batch = np.stack([synth._quantize_int16(synth.synth_recording(s)[:synth.SR * 60])
+                          for s in range(4)]).astype(dtype)
+        cfg = chip_smoke.scan_config(dtype, kickstart)
+        _SCAN_CALLS[key] = cfg, chip_smoke.scan_calls(batch, cfg)
+    return _SCAN_CALLS[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kickstart", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_classify_scan_kernel_matches_plain_version(dtype, kickstart):
+    """Every one of the 26 trace fields and the classes equal (max abs error
+    0, NaN equal to NaN), with and without the trace, on the path's inputs,
+    rows cut to 0-4 peaks and a row at full capacity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.models import classifier
+
+    cfg, (c_calls, _) = _scan_calls(dtype, kickstart)
+    assert len(c_calls) == 2
+    (x, n, sr, _), _ = c_calls[-1]
+    for name, xc in chip_smoke.scan_input_cases(x, n):
+        for want_trace in (True, False):
+            before = classify_kernel.launches
+            got = classify_kernel.classify_scan(xc, n, sr, cfg, want_trace=want_trace)
+            torch.cuda.synchronize()
+            assert classify_kernel.launches == before + 1
+            exp = classifier.scan_plain(xc, sr, cfg, want_trace=want_trace)
+            assert chip_smoke.trace_error(got, exp) == 0, (name, want_trace)
+            if want_trace:
+                for f in classifier.ClassifierTrace._fields:
+                    assert getattr(got[1], f).dtype == getattr(exp[1], f).dtype, f
+                    assert getattr(got[1], f).shape == getattr(exp[1], f).shape, f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rhythm_scan_kernel_matches_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.models import corrections
+
+    _, (_, r_calls) = _scan_calls(dtype, False)
+    assert len(r_calls) == 1
+    (pos, amp, count, threshold, n, sr), _ = r_calls[0]
+    before = rhythm_kernel.launches
+    written, victim = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n, sr)
+    torch.cuda.synchronize()
+    assert rhythm_kernel.launches == before + 1
+    w_exp, v_exp = corrections.rhythm_scan_plain(pos, amp, count, threshold, sr)
+    assert torch.equal(written, w_exp) and torch.equal(victim, v_exp)
+
+
+@pytest.mark.gpu
+def test_scan_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, (c_calls, r_calls) = _scan_calls("float32", False)
+    (x, n, sr, _), _ = c_calls[-1]
+    c_before, r_before = classify_kernel.launches, rhythm_kernel.launches
+    bad = [x._replace(positions=x.positions.long()),                  # dtype
+           x._replace(deviation=x.deviation.double()),                # mixed dtypes
+           x._replace(count=x.count[:-1]),                            # shape
+           x._replace(strength=x.strength.t().contiguous().t()),      # not contiguous
+           x._replace(boost=x.boost.cpu())]                           # device
+    for xb in bad:
+        with pytest.raises(ValueError):
+            classify_kernel.classify_scan(xb, n, sr, cfg)
+    with pytest.raises(ValueError):
+        classify_kernel.classify_scan(x, 1 << 24, sr, cfg)
+    (pos, amp, count, threshold, n, sr), _ = r_calls[0]
+    for args in ((pos.long(), amp, count, threshold), (pos, amp.double(), count, threshold),
+                 (pos, amp, count[:-1], threshold), (pos, amp.t().contiguous().t(), count,
+                                                     threshold),
+                 (pos, amp, count, threshold.cpu())):
+        with pytest.raises(ValueError):
+            rhythm_kernel.rhythm_scan(*args, n, sr)
+    assert classify_kernel.launches == c_before and rhythm_kernel.launches == r_before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FILTER_CASES, ids=[c[0] for c in FILTER_CASES])
+def test_block_filter_kernel_matches_plain_version(case):
+    """``csrc/block_filter.cu`` equals ``ops/filter.lfilter_plain`` bit for
+    bit: rows shorter than a block, a ragged last block, 2-6 states, both
+    dtypes, the main path's length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.ops import filter as filt
+
+    _, b, a, x, zi = case
+    xt, zt = torch.from_numpy(x).cuda(), torch.from_numpy(zi).cuda()
+    before = filter_kernel.launches
+    got = filter_kernel.lfilter(b, a, xt, zt)
+    torch.cuda.synchronize()
+    assert filter_kernel.launches == before + 1
+    assert torch.equal(got, filt.lfilter_plain(b, a, xt, zt))
+
+
+@pytest.mark.gpu
+def test_filter_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.ops import filter as filt
+
+    _, b, a, x, zi = FILTER_CASES[1]
+    xt, zt = torch.from_numpy(x).cuda(), torch.from_numpy(zi).cuda()
+    before = filter_kernel.launches
+    for args in ((xt.half(), zt), (xt, zt.double()), (xt, zt[:-1]),
+                 (xt.t().contiguous().t(), zt), (xt, zt.cpu()), (xt[0], zt)):
+        with pytest.raises(ValueError):
+            filter_kernel.lfilter(b, a, *args)
+    b9, a9 = filt.butter_bandpass(5, 20.0, 150.0, 302)          # 10 states
+    with pytest.raises(ValueError):
+        filter_kernel.lfilter(b9, a9, xt, torch.zeros(xt.shape[0], 10, device="cuda"))
+    assert filter_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", test_torch_filter_batch.FILTERS)
+def test_filter_rows_do_not_depend_on_the_batch_on_the_card(name, dtype):
+    """tests/test_torch_filter_batch.py on the card (ROADMAP C6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    test_torch_filter_batch.assert_rows_do_not_depend_on_the_batch(name, dtype, "cuda")
 
 
 @pytest.mark.gpu
@@ -188,6 +327,17 @@ def test_fixed_order_sums_do_not_depend_on_the_batch_on_the_card():
     one = rolling.rolling_mean_dynamic_window(x[:1], valid[:1], window[:1], 128)
     assert same(got, one)
     assert torch.equal(series.fixed_order_sum(x)[:1], series.fixed_order_sum(x[:1]))
+
+    # The band-pass filter at the main path's length, masked as the host runs it.
+    from bpm_analysis_tpu_torch.ops import filter as filt
+
+    sig = torch.from_numpy((rng.randn(16, 181200) * 500).astype(np.float32)).to(dev)
+    n_valid = torch.from_numpy(rng.randint(150000, 181201, size=16)).to(dev)
+    for nv in (None, n_valid):
+        got = filt.bandpass_filtfilt(sig, 302, 20.0, 150.0, 2, n_valid=nv)
+        one = filt.bandpass_filtfilt(sig[:1], 302, 20.0, 150.0, 2,
+                                     n_valid=None if nv is None else nv[:1])
+        assert torch.equal(got[:1], one)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,460 @@
+"""The two scan kernels' per-thread loops, emulated in numpy scalars on the
+CPU and held bit for bit against their plain versions.
+
+The kernels run only on a card (tests/test_torch_cuda.py).  These tests keep
+their arithmetic checkable here: each emulation walks one recording's slots
+as the kernel's thread does, with np.float32 / np.float64 scalars, the
+kernel's constant tables (``classify_kernel.constants``), a 64-bit mask for
+the 20-slot paired ring and 4-bit masks for the kick-start rings,
+NaN-propagating clamp / maximum / minimum, and the kernel's upper-bound
+search for Interp's segment.
+
+* ``csrc/classify_scan.cu`` against ``models/classifier.scan_plain``: all
+  26 trace fields and the classes (NaN equal to NaN), float32 and float64,
+  with and without the trace, kick-start on and off, on rows with 0, 1, 2
+  and 4 peaks, a row at full capacity and NaN recovery bounds.
+* ``csrc/rhythm_scan.cu`` against ``models/corrections.rhythm_scan_plain``:
+  ``written`` and ``victim``.
+
+The inputs come from the port's own pipeline on 60 s synthetic recordings at
+302 Hz with 512 raw-peak slots (as tests/test_torch_classifier.py).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from bpm_analysis_tpu_torch import synth
+from bpm_analysis_tpu_torch.config import DEFAULT_CONFIG
+from bpm_analysis_tpu_torch.models import classifier as tcls
+from bpm_analysis_tpu_torch.models import corrections as tcorr
+from bpm_analysis_tpu_torch.models import envelope as tenv
+from bpm_analysis_tpu_torch.models import noise_floor as tnf
+from bpm_analysis_tpu_torch.models import pipeline as tpipe
+from bpm_analysis_tpu_torch.ops import find_peaks as tfp
+from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, rhythm_kernel
+from bpm_analysis_tpu_torch import types
+
+torch.set_num_threads(1)
+
+SR = 302
+SEEDS = (0, 1, 2, 3)
+TRUNCATED = (0, 1, 2, 4)      # rows of seed 0 cut to this many raw peaks
+
+# Offsets of the kernel's enums (csrc/classify_scan.cu).
+(C_SR, C_HIST, C_HALF, C_KICK_THR, C_KICK_OVR, C_BPM_LOW, C_BPM_SPAN, C_PEN_MIN,
+ C_PEN_SPAN, C_ONE, C_TWO, C_SIXTY, C_RR_FRAC, C_IVL_CAP, C_PZS, C_PZE, C_EPS,
+ C_IPEN_MAX, C_PAIR_THR, C_W_RHYTHM, C_W_AMP, C_LONE_THR, C_FWD_PCT,
+ C_ONE_MINUS_LR, C_LR, C_MAX_CHANGE, C_MIN_BPM, C_MAX_BPM, C_ZERO, C_NAN) = range(30)
+T_K, T_XP, T_DX, T_DX0, T_FLO, T_DF, T_FIRST, T_LAST = 0, 1, 9, 17, 25, 33, 41, 42
+I_BASE, I_SF, I_RATIO, I_RHYTHM, I_AMP = range(5)
+(K_UNCLASSIFIED, K_S1_PAIRED, K_S2_PAIRED, K_LONE_VALIDATED, K_LONE_CASCADE,
+ K_LONE_LAST, K_NOISE, K_LONE_OK, K_LONE_FIRST, K_LONE_REJ_CONF, K_LONE_REJ_FWD,
+ K_HIST, K_CASCADE, K_ENABLE_IPEN) = range(14)
+
+
+def _config(dtype: str, kickstart: bool = False):
+    return dataclasses.replace(
+        DEFAULT_CONFIG,
+        runtime=dataclasses.replace(DEFAULT_CONFIG.runtime, max_raw_peaks=512,
+                                    max_troughs=512, max_candidates=256,
+                                    noise_quantile_stride=64, quantile_backend="knots",
+                                    dtype=dtype),
+        compat=dataclasses.replace(DEFAULT_CONFIG.compat, kickstart_effective=kickstart))
+
+
+_CACHE = {}
+
+
+def _captured(dtype: str):
+    """(classifier ScanInputs, (pos, amp, count, threshold) of the rhythm
+    scan, n) from the port's pipeline on the test batch, on the CPU: seeds
+    0-3, then seed 0 cut to 0, 1, 2 and 4 raw peaks; the recovery window of
+    row 1 is NaN."""
+    if dtype in _CACHE:
+        return _CACHE[dtype]
+    cfg = _config(dtype)
+    tdt = torch.float32 if dtype == "float32" else torch.float64
+    x = np.stack([synth._quantize_int16(synth.synth_recording(s)[:SR * 60])
+                  for s in SEEDS]).astype(dtype)
+    env = tenv.preprocess(x, SR, cfg, device="cpu")[0]
+    ext = tfp.build_extrema(env, cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks)
+    nf = tnf.dynamic_noise_floor(env, SR, cfg, extrema=ext)
+    peaks = tpipe.raw_peaks(env, nf.floor, SR, cfg, extrema=ext)
+    n = env.shape[1]
+    rows = list(range(len(SEEDS))) + [0] * len(TRUNCATED)
+    env, floor = env[rows], nf.floor[rows]
+    pos, count = peaks.positions[rows].clone(), peaks.count[rows].clone()
+    for i, k in enumerate(TRUNCATED):
+        r = len(SEEDS) + i
+        pos[r, k:] = n
+        count[r] = k
+    hint = torch.full((len(rows),), float("nan"), dtype=tdt)
+    start, peak_t, rec_end = tpipe.preliminary_pass(env, floor, tfp.Peaks(pos, count, None),
+                                                    SR, hint, cfg)
+    peak_t = peak_t.clone()
+    peak_t[1] = float("nan")
+
+    calls = {}
+    real_scan, real_rhythm = classify_kernel.classify_scan, rhythm_kernel.rhythm_scan
+
+    def scan(x, *a, **k):
+        calls["scan"] = x
+        return real_scan(x, *a, **k)
+
+    def rhythm(*a, **k):
+        calls["rhythm"] = a[:4]
+        return real_rhythm(*a, **k)
+
+    classify_kernel.classify_scan, rhythm_kernel.rhythm_scan = scan, rhythm
+    try:
+        res = tcls.classify(env, floor, pos, count, SR, start, cfg,
+                            peak_bpm_time_sec=peak_t, recovery_end_time_sec=rec_end)
+        tcorr.rhythm_correction(res.s1_positions, res.s1_count, env, SR, cfg)
+    finally:
+        classify_kernel.classify_scan, rhythm_kernel.rhythm_scan = real_scan, real_rhythm
+    _CACHE[dtype] = calls["scan"], calls["rhythm"], n
+    return _CACHE[dtype]
+
+
+def _full_row(x: tcls.ScanInputs, row: int) -> tcls.ScanInputs:
+    """The inputs cut to ``row``'s count of slots: that row at full capacity."""
+    k = int(x.count[row])
+    cut = {f: (v[:, :k].contiguous() if v.dim() == 2 else v) for f, v in x._asdict().items()}
+    cut["count"] = torch.clamp(x.count, max=k)
+    return tcls.ScanInputs(**cut)
+
+
+# --------------------------------------------------------------------------
+# The classifier kernel's thread, in numpy scalars.
+
+def _isnan(v):
+    return v != v
+
+
+def _clamp(v, lo, hi):
+    return v if _isnan(v) else min(max(v, lo), hi)
+
+
+def _clamp_min(v, lo):
+    return v if _isnan(v) else max(v, lo)
+
+
+def _clamp_max(v, hi):
+    return v if _isnan(v) else min(v, hi)
+
+
+def _maximum(a, b):
+    return a if _isnan(a) else (b if _isnan(b) else max(a, b))
+
+
+def _minimum(a, b):
+    return a if _isnan(a) else (b if _isnan(b) else min(a, b))
+
+
+def _upper_bound(xp, k, x):
+    start, end = 0, k
+    while start < end:
+        mid = start + ((end - start) >> 1)
+        if not (xp[mid] > x):
+            start = mid + 1
+        else:
+            end = mid
+    return start
+
+
+def _interp_const(tb, x):
+    k = int(tb[T_K])
+    im1 = min(max(_upper_bound(tb[T_XP:], k, x), 1), k - 1) - 1
+    f_lo = tb[T_FLO + im1]
+    f = f_lo + ((x - tb[T_XP + im1]) / tb[T_DX + im1]) * tb[T_DF + im1]
+    if tb[T_DX0 + im1] != 0:
+        f = f_lo
+    if x < tb[T_XP]:
+        f = tb[T_FIRST]
+    if x > tb[T_XP + k - 1]:
+        f = tb[T_LAST]
+    return f
+
+
+def _interp_curve(tb, x, blend):
+    k = int(tb[T_K])
+    im1 = min(max(_upper_bound(tb[T_XP:], k, x), 1), k - 1) - 1
+    f_lo = tb[T_FLO + im1] + tb[T_DF + im1] * blend
+    f_hi = tb[T_FLO + im1 + 1] + tb[T_DF + im1 + 1] * blend
+    f = f_lo + ((x - tb[T_XP + im1]) / tb[T_DX + im1]) * (f_hi - f_lo)
+    if tb[T_DX0 + im1] != 0:
+        f = f_lo
+    if x < tb[T_XP]:
+        f = tb[T_FLO] + tb[T_DF] * blend
+    if x > tb[T_XP + k - 1]:
+        f = tb[T_FLO + k - 1] + tb[T_DF + k - 1] * blend
+    return f
+
+
+def emulate_classify(x: tcls.ScanInputs, cfg, want_trace: bool):
+    """(peak_class, {field: (B, cap)}) of the kernel's threads, one row at a
+    time, slot by slot, in the kernel's operations."""
+    dtype = x.deviation.dtype
+    T = np.float32 if dtype == torch.float32 else np.float64
+    floats, si = classify_kernel.constants(SR, cfg, dtype)
+    sc = [T(v) for v in floats]
+    tables = [sc[32 + i * 48:32 + (i + 1) * 48] for i in range(5)]
+    kick = cfg.compat.kickstart_effective
+    hist = int(si[K_HIST])
+    arr = {f: getattr(x, f).numpy() for f in x._fields}
+    bsz, cap = arr["positions"].shape
+    pc = np.zeros((bsz, cap), np.int32)
+    out = {f: np.zeros((bsz, cap), T) for f in classify_kernel.KERNEL_FIELDS}
+    lone_out = np.zeros((bsz, cap), np.int32)
+    paired_out = np.zeros((bsz, cap), bool)
+    zero, one = sc[C_ZERO], sc[C_ONE]
+    with np.errstate(all="ignore"):
+        for b in range(bsz):
+            pending, belief = False, arr["start_belief"][b]
+            last_pos = prev_pos = -1
+            last_strength = T(0)
+            cand_count, ring, rejections = 0, 0, 0
+            ks_lone = ks_next = 0
+            ks_prev = False
+            cnt = int(arr["count"][b])
+            for t in range(cap):
+                p = int(arr["positions"][b, t])
+                dv, ivl = arr["deviation"][b, t], arr["interval_sec"][b, t]
+                r21, st = arr["s2_s1_ratio"][b, t], arr["strength"][b, t]
+                bst, fl = arr["boost"][b, t], int(arr["flags"][b, t])
+                active, is_last = t < cnt, t == cnt - 1
+
+                ring_mean = T(bin(ring).count("1")) / sc[C_HIST]
+                pairing_ratio = sc[C_HALF] if cand_count < hist else ring_mean
+                if kick:
+                    matches = bin(ks_lone & ks_next).count("1")
+                    lones = bin(ks_lone).count("1")
+                    if (pairing_ratio < sc[C_KICK_THR] and cand_count >= 4 and lones >= 3
+                            and matches >= 3):
+                        pairing_ratio = sc[C_KICK_OVR]
+
+                blend = _clamp((belief - sc[C_BPM_LOW]) / sc[C_BPM_SPAN], zero, one)
+                base_conf = _interp_curve(tables[I_BASE], dv, blend)
+                sf = _interp_const(tables[I_SF], pairing_ratio)
+                use_sf = cand_count >= 5
+                conf = base_conf * sf if use_sf else base_conf
+                eff = _clamp_min(belief, sc[C_BPM_LOW]) if fl & tcls.IN_RECOVERY else belief
+                max_expected = _interp_const(tables[I_RATIO], eff)
+                do_penalty = r21 > max_expected
+                severity = _clamp((r21 / max_expected - one) / sc[C_TWO], zero, one)
+                penalty = severity * sc[C_PEN_SPAN] + sc[C_PEN_MIN]
+                do_boost = (not do_penalty) and bool(fl & tcls.STRONG_S1)
+                conf = conf - penalty if do_penalty else (conf + bst if do_boost else conf)
+                conf = one if _isnan(conf) else _clamp(conf, zero, one)
+
+                expected_rr = (one / belief) * sc[C_SIXTY]
+                max_interval = _clamp_max(expected_rr * sc[C_RR_FRAC], sc[C_IVL_CAP])
+                pzs, pze = max_interval * sc[C_PZS], max_interval * sc[C_PZE]
+                exceed_i = _clamp((ivl - pzs) / (pze - pzs + sc[C_EPS]), zero, one)
+                ipen = exceed_i * sc[C_IPEN_MAX]
+                do_ipen = bool(si[K_ENABLE_IPEN]) and ivl > max_interval and ivl > pzs
+                if do_ipen:
+                    conf = _clamp_min(conf - ipen, zero)
+                paired = bool(conf >= sc[C_PAIR_THR])
+
+                first_beat = cand_count == 0
+                actual_rr = T(p - last_pos) / sc[C_SR]
+                rhythm_dev = abs(actual_rr - expected_rr) / expected_rr
+                rhythm_score = _interp_const(tables[I_RHYTHM], rhythm_dev)
+                amp_ratio = st / (last_strength + sc[C_EPS])
+                amp_score = _interp_const(tables[I_AMP], amp_ratio)
+                lone_conf = rhythm_score * sc[C_W_RHYTHM] + amp_score * sc[C_W_AMP]
+                conf_ok = bool(lone_conf >= sc[C_LONE_THR])
+                fwd_fail = bool(ivl < expected_rr * sc[C_FWD_PCT]) and not fl & tcls.FWD_WAIVED
+                lone_valid = first_beat or (conf_ok and not fwd_fail)
+                lone_reason = (si[K_LONE_FIRST] if first_beat else si[K_LONE_REJ_CONF]
+                               if not conf_ok else si[K_LONE_REJ_FWD] if fwd_fail
+                               else si[K_LONE_OK])
+                rej_after = (rejections + 1 if not lone_valid
+                             and lone_reason == si[K_LONE_REJ_CONF] else 0)
+                cascade = (not lone_valid) and rej_after >= si[K_CASCADE]
+                lone_class = (si[K_LONE_VALIDATED] if lone_valid else si[K_LONE_CASCADE]
+                              if cascade else si[K_NOISE])
+                peak_class = (si[K_S2_PAIRED] if pending else si[K_LONE_LAST] if is_last
+                              else si[K_S1_PAIRED] if paired else lone_class)
+                if not active:
+                    peak_class = si[K_UNCLASSIFIED]
+                processed = active and not pending
+                appended = processed and (is_last or paired or lone_valid or cascade)
+                appended_paired = processed and not is_last and paired
+                new_last = p if appended else last_pos
+                new_prev = last_pos if appended else prev_pos
+                new_count = cand_count + int(appended)
+
+                rr_new = T(new_last - new_prev) / sc[C_SR]
+                new_belief = belief
+                if processed and new_count > 1 and new_prev >= 0 and rr_new > 0:
+                    instant = (one / rr_new) * sc[C_SIXTY]
+                    target = belief * sc[C_ONE_MINUS_LR] + instant * sc[C_LR]
+                    max_change = rr_new * sc[C_MAX_CHANGE]
+                    change = _minimum(_maximum(target - belief, -max_change), max_change)
+                    new_belief = _clamp(belief + change, sc[C_MIN_BPM], sc[C_MAX_BPM])
+
+                pc[b, t] = peak_class
+                if want_trace:
+                    nan = sc[C_NAN]
+                    row = dict(
+                        blend_ratio=blend, base_conf=base_conf, pairing_ratio=pairing_ratio,
+                        stability_factor=sf if use_sf else nan, max_expected_ratio=max_expected,
+                        penalty_amount=penalty if do_penalty else nan,
+                        boost_amount=bst if do_boost else nan, max_interval_sec=max_interval,
+                        interval_penalty=ipen if do_ipen else nan, final_conf=conf,
+                        lone_conf=lone_conf, rhythm_score=rhythm_score, actual_rr_sec=actual_rr,
+                        expected_rr_sec=expected_rr, amp_score=amp_score, amp_ratio=amp_ratio,
+                        belief=new_belief,
+                        belief_time_sec=(T(new_last) / sc[C_SR]
+                                         if processed and new_count > 0 else nan))
+                    for f, v in row.items():
+                        out[f][b, t] = v
+                    lone_out[b, t] = lone_reason
+                    paired_out[b, t] = paired
+
+                if kick:
+                    appended_lone = appended and not appended_paired
+                    noise_step = (processed and not is_last and not paired
+                                  and not lone_valid and not cascade)
+                    marked = ks_next | (8 if noise_step and ks_prev else 0)
+                    if appended:
+                        ks_lone = (ks_lone >> 1) | (8 if appended_lone else 0)
+                        ks_next = marked >> 1
+                    else:
+                        ks_next = marked
+                    if processed:
+                        ks_prev = appended_lone
+                if appended:
+                    last_strength = st
+                    ring = (ring >> 1) | (int(appended_paired) << (hist - 1))
+                if processed and not is_last:
+                    rejections = 0 if (paired or lone_valid or cascade) else rej_after
+                pending = processed and not is_last and paired
+                belief, last_pos, prev_pos, cand_count = new_belief, new_last, new_prev, new_count
+    if not want_trace:
+        return pc, None
+    out.update(peak_class=pc, lone_reason=lone_out, paired=paired_out)
+    out.update({f: getattr(x, f).numpy() for f in classify_kernel.SLOT_FIELDS})
+    return pc, out
+
+
+def _assert_trace_equal(got: dict, trace: tcls.ClassifierTrace):
+    assert set(got) == set(tcls.ClassifierTrace._fields)
+    for f in tcls.ClassifierTrace._fields:
+        exp = getattr(trace, f).numpy()
+        assert got[f].dtype == exp.dtype, f
+        np.testing.assert_array_equal(got[f], exp, err_msg=f)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kickstart", [False, True])
+def test_classify_kernel_emulation_equals_plain_loop(dtype, kickstart):
+    x, _, _ = _captured(dtype)
+    cfg = _config(dtype, kickstart)
+    counts = x.count.tolist()
+    assert counts[len(SEEDS):] == list(TRUNCATED) and min(counts[:len(SEEDS)]) >= 100
+    assert bool((x.flags & tcls.IN_RECOVERY).any()) and not bool(
+        (x.flags[1] & tcls.IN_RECOVERY).any())
+    for want_trace in (True, False):
+        pc_exp, trace = tcls.scan_plain(x, SR, cfg, want_trace=want_trace)
+        pc, got = emulate_classify(x, cfg, want_trace)
+        np.testing.assert_array_equal(pc, pc_exp.numpy())
+        if want_trace:
+            _assert_trace_equal(got, trace)
+            classes = set(pc[:len(SEEDS)].ravel().tolist())
+            assert {types.S1_PAIRED, types.S2_PAIRED, types.LONE_S1_LAST,
+                    types.UNCLASSIFIED} <= classes
+            assert len(set(got["lone_reason"].ravel().tolist())) >= 3
+        else:
+            assert trace is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_classify_kernel_emulation_at_full_capacity(dtype):
+    x, _, _ = _captured(dtype)
+    full = _full_row(x, 2)
+    assert int(full.count[2]) == full.positions.shape[1]
+    cfg = _config(dtype)
+    pc_exp, trace = tcls.scan_plain(full, SR, cfg)
+    pc, got = emulate_classify(full, cfg, True)
+    np.testing.assert_array_equal(pc, pc_exp.numpy())
+    _assert_trace_equal(got, trace)
+
+
+def test_classify_wrapper_takes_the_plain_version_on_the_cpu():
+    x, _, _ = _captured("float32")
+    cfg = _config("float32")
+    before = classify_kernel.launches
+    pc, trace = classify_kernel.classify_scan(x, 18120, SR, cfg)
+    pc_exp, trace_exp = tcls.scan_plain(x, SR, cfg)
+    assert classify_kernel.launches == before
+    assert torch.equal(pc, pc_exp)
+    for f in tcls.ClassifierTrace._fields:
+        assert torch.equal(torch.nan_to_num(getattr(trace, f), nan=-7.0),
+                           torch.nan_to_num(getattr(trace_exp, f), nan=-7.0)), f
+
+
+# --------------------------------------------------------------------------
+# The rhythm kernel's thread.
+
+def emulate_rhythm(pos, amp, count, threshold):
+    T = amp.dtype.type
+    sr = T(SR)
+    bsz, cap = pos.shape
+    written = np.zeros((bsz, cap), bool)
+    victim = np.zeros((bsz, cap), np.int32)
+    with np.errstate(all="ignore"):
+        for b in range(bsz):
+            last_slot, last_pos, last_amp = 0, int(pos[b, 0]), amp[b, 0]
+            for i in range(cap):
+                p, a = int(pos[b, i]), amp[b, i]
+                interval = T(p - last_pos) / sr
+                act = i < count[b] and i > 0
+                conflict = act and interval < threshold[b]
+                replace = conflict and a > last_amp
+                w = act and not (conflict and not replace)
+                victim[b, i] = last_slot if replace else cap
+                written[b, i] = w
+                if w:
+                    last_slot, last_pos, last_amp = i, p, a
+    return written, victim
+
+
+def _rhythm_cases(dtype):
+    _, (pos, amp, count, threshold), n = _captured(dtype)
+    yield "pipeline", pos, amp, count, threshold
+    k = int(count[0])
+    yield "full_capacity", pos[:, :k].contiguous(), amp[:, :k].contiguous(), \
+        torch.clamp(count, max=k), threshold
+    # Conflicts: every third beat of each row gets a neighbour 15 samples
+    # later, alternately louder (it replaces the beat) and quieter (dropped).
+    cap = pos.shape[1]
+    pos2, amp2 = torch.full_like(pos, n), torch.zeros_like(amp)
+    count2 = torch.zeros_like(count)
+    for b in range(pos.shape[0]):
+        c = int(count[b])
+        extra = torch.arange(0, c, 3)
+        p = torch.cat([pos[b, :c], pos[b, extra] + 15])
+        scale = torch.where(extra % 2 == 0, 1.25, 0.8).to(amp.dtype)
+        a = torch.cat([amp[b, :c], amp[b, extra] * scale])
+        order = torch.argsort(p, stable=True)[:cap]
+        pos2[b, :len(order)], amp2[b, :len(order)] = p[order], a[order]
+        count2[b] = len(order)
+    yield "conflicts", pos2, amp2, count2, threshold
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rhythm_kernel_emulation_equals_plain_loop(dtype):
+    replaced = 0
+    for name, pos, amp, count, threshold in _rhythm_cases(dtype):
+        w_exp, v_exp = tcorr.rhythm_scan_plain(pos, amp, count, threshold, SR)
+        w, v = emulate_rhythm(pos.numpy(), amp.numpy(), count.numpy(), threshold.numpy())
+        np.testing.assert_array_equal(w, w_exp.numpy(), err_msg=name)
+        np.testing.assert_array_equal(v, v_exp.numpy(), err_msg=name)
+        replaced += int((v < pos.shape[1]).sum())
+    counts = _captured(dtype)[1][2].tolist()
+    assert min(counts) < 5 and replaced > 10
