@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled on first use into ``<checkout>/.torch_build/<name>-<hash>.so``,
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once.  The compiler writes to a temporary
+keyed by a hash of the source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  The compiler writes to a temporary
 name that is renamed into place (``os.replace``): a build that is cut off
 leaves no half-written library and no lock behind.  ``-Xptxas -v`` makes
 ptxas report each kernel's registers, shared memory and spills;
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,6 +41,26 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _digest(src: Path) -> str:
+    """Hash of ``src``, every ``csrc`` header it includes (transitively,
+    each once, in the order first met) and the flags."""
+    h = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(text)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.  Raises
     with nvcc's output if the build fails or exceeds its time limit."""
@@ -46,7 +68,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = _digest(src)
     target = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -3,7 +3,7 @@
 Port of ``bpm_analysis_tpu/models/classifier.py`` (reference
 ``PeakClassifier``, bpm_analysis.py:64-330, and its confidence helpers
 :1120-1250).  The JAX ``lax.scan`` becomes, on the card, the CUDA kernel
-``csrc/classify_scan.cu`` (one thread per recording, through
+``csrc/classify_scan.cu`` (one block per recording, through
 ``ops/cuda/classify_kernel``) and, on the CPU, its plain version
 :func:`scan_plain`: a Python loop over slots whose state is (B,)-shaped, so
 every recording of the batch advances in lockstep:

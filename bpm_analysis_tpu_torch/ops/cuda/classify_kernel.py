@@ -11,7 +11,10 @@ The kernel reads its constants from two small device tables that this
 module builds: every float rounded to the working dtype exactly as the
 plain version rounds the Python number at its operation (and the Interp
 tables taken from ``classifier.Interp`` itself), every integer code from
-``types``.
+``types``, and keeps them on the card for the next call with the same
+configuration.  Its float32 divisions by a constant take div.rn.f32's fast path
+with the reciprocal hoisted; :func:`division_mismatches` holds them against
+IEEE division on the card over :func:`constant_divisors`.
 """
 from __future__ import annotations
 
@@ -24,10 +27,12 @@ from ... import types
 
 launches = 0
 _lib = None
+_tables: dict = {}      # (sample_rate, cfg, dtype, device) -> (float table, int table) on the card
 
 SCALARS = 32            # the kernel's enum Const
 TABLE_WIDTH = 48        # its enum Table
 MAX_KNOTS = 8
+MAX_HIST = 64           # the paired ring is a 64-bit mask
 KERNEL_FIELDS = ("blend_ratio", "base_conf", "pairing_ratio", "stability_factor",
                  "max_expected_ratio", "penalty_amount", "boost_amount",
                  "max_interval_sec", "interval_penalty", "final_conf", "lone_conf",
@@ -48,13 +53,16 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * 11 + [i32] * 4 + [ptr] * 5
             fn.restype = i32
+        lib.classify_scan_check_division.argtypes = [
+            ptr, i32, ctypes.c_ulonglong, ctypes.c_uint, ptr, ptr]
+        lib.classify_scan_check_division.restype = i32
         lib.classify_scan_layout.argtypes = [ptr]
         lib.classify_scan_layout.restype = i32
         lib.classify_scan_error_string.argtypes = [i32]
         lib.classify_scan_error_string.restype = ctypes.c_char_p
-        layout = (ctypes.c_int * 4)()
+        layout = (ctypes.c_int * 5)()
         lib.classify_scan_layout(layout)
-        expected = (SCALARS + 5 * TABLE_WIDTH, 14, len(KERNEL_FIELDS), MAX_KNOTS)
+        expected = (SCALARS + 5 * TABLE_WIDTH, 14, len(KERNEL_FIELDS), MAX_KNOTS, MAX_HIST)
         if tuple(layout) != expected:
             raise RuntimeError(f"classify_scan layout {tuple(layout)} != {expected}")
         _lib = lib
@@ -69,9 +77,12 @@ def _interp_table(interp, fp=None) -> np.ndarray:
     k = interp.k
     if not 2 <= k <= MAX_KNOTS:
         raise ValueError(f"the classify kernel takes 2-{MAX_KNOTS} interp knots, got {k}")
+    xp = interp.xp_t.cpu().numpy()
+    if not (np.diff(xp) >= 0).all():
+        raise ValueError(f"the classify kernel's segment count needs sorted knots, got {xp}")
     table = interp.table.cpu().numpy().astype(np.float64)
     row[0] = k
-    row[1:1 + k] = interp.xp_t.cpu().numpy()
+    row[1:1 + k] = xp
     row[9:9 + k - 1] = table[1]
     if interp.dx0 is not None:
         row[17:17 + k - 1] = interp.dx0.cpu().numpy()
@@ -123,14 +134,47 @@ def constants(sample_rate: int, cfg, dtype: torch.dtype):
     ]
     floats = np.concatenate([head, *tables]).astype(npd)
     hist = p.stability_history_window
-    if not 1 <= hist <= 64:
-        raise ValueError(f"the classify kernel keeps a ring of 1-64 slots, got {hist}")
+    if not 1 <= hist <= MAX_HIST:
+        raise ValueError(f"the classify kernel keeps a ring of 1-{MAX_HIST} slots, got {hist}")
     ints = np.asarray([
         types.UNCLASSIFIED, types.S1_PAIRED, types.S2_PAIRED, types.LONE_S1_VALIDATED,
         types.LONE_S1_CASCADE, types.LONE_S1_LAST, types.NOISE, types.LONE_OK,
         types.LONE_FIRST_BEAT, types.LONE_REJ_CONFIDENCE, types.LONE_REJ_FORWARD,
         hist, r.cascade_reset_trigger_count, int(p.enable_interval_penalty)], np.int32)
     return floats, ints
+
+
+def constant_divisors(sample_rate: int, cfg) -> np.ndarray:
+    """The float32 constant divisors of the kernel's chain: the BPM span, the
+    sample rate, 2 and the dx of each segment of the three interps on the
+    chain (ratio, rhythm, amplitude)."""
+    floats, _ = constants(sample_rate, cfg, torch.float32)
+    out = [floats[6], floats[0], floats[10]]                # C_BPM_SPAN, C_SR, C_TWO
+    for which in (2, 3, 4):                                  # I_RATIO, I_RHYTHM, I_AMP
+        row = floats[SCALARS + which * TABLE_WIDTH:][:TABLE_WIDTH]
+        k = int(row[0])
+        out += [dx for dx, dx0 in zip(row[9:9 + k - 1], row[17:17 + k - 1]) if not dx0]
+    return np.asarray(out, np.float32)
+
+
+def division_mismatches(divisors, n_per: int, seed: int = 0) -> int:
+    """How many of ``n_per`` pseudo-random numerators for each divisor (half
+    of random bits, half in the fast path's exponent range, some zeros)
+    give a quotient on the kernel's fast-division path that differs from
+    IEEE division (div.rn.f32) on the card; ``divisors=None`` draws
+    ``n_per`` divisors at random too, as the carried divisors are.  The
+    kernel is bit-equal only if this is 0."""
+    d = torch.as_tensor(np.asarray([] if divisors is None else divisors, np.float32),
+                        device="cuda")
+    mismatches = torch.zeros(1, dtype=torch.int64, device="cuda")
+    lib = _library()
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    rc = lib.classify_scan_check_division(d.data_ptr(), len(d), n_per, seed,
+                                          mismatches.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.classify_scan_error_string(rc).decode()
+        raise RuntimeError(f"classify_scan division check failed: {msg} ({rc})")
+    return int(mismatches.item())
 
 
 def classify_scan(x, n: int, sample_rate: int, cfg, want_trace: bool = True):
@@ -166,9 +210,14 @@ def classify_scan(x, n: int, sample_rate: int, cfg, want_trace: bool = True):
     if n >= 1 << 24:
         raise ValueError("positions must stay below 2^24 (exact in float32)")
 
-    floats, ints = constants(sample_rate, cfg, dtype)
-    consts = torch.as_tensor(floats, device=device)
-    codes = torch.as_tensor(ints, device=device)
+    key = (sample_rate, cfg, dtype, str(device))
+    if key not in _tables:
+        if len(_tables) >= 16:
+            _tables.pop(next(iter(_tables)))
+        floats, ints = constants(sample_rate, cfg, dtype)
+        _tables[key] = (torch.as_tensor(floats, device=device),
+                        torch.as_tensor(ints, device=device))
+    consts, codes = _tables[key]
     peak_class = torch.empty((bsz, cap), dtype=torch.int32, device=device)
     if want_trace:
         ibuf = torch.empty((bsz, cap), dtype=torch.int32, device=device)

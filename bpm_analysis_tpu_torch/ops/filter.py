@@ -17,7 +17,10 @@ depend on the batch it is filtered in; here each row's output is a
 function of that row alone, bit for bit, on any device.  On the card
 :func:`lfilter` is the CUDA kernel ``csrc/block_filter.cu`` (the same
 products in the same order); :func:`lfilter_plain` is its plain version.
-The helpers serve the sequence-sharded relay too (``parallel/seqshard.py``).
+:class:`BlockFilter`'s pieces serve the sequence-sharded relay too
+(``parallel/seqshard.py``), which runs them through the kernel's phase
+entry points (``ops/cuda/filter_kernel.contributions`` / ``carry_scan`` /
+``apply``) on the card.
 """
 from __future__ import annotations
 
@@ -137,7 +140,8 @@ def toeplitz_apply(X: torch.Tensor, h) -> torch.Tensor:
 class BlockFilter(NamedTuple):
     """The blocked filter's tables in the working dtype: ``A_LT = (A^L).T``,
     ``U`` (L, m), ``GT = G.T`` (m, L), the Toeplitz lags ``h`` (Python
-    floats) and ``b0``."""
+    floats) and ``b0``.  Its methods are the plain versions of the filter
+    kernel's phases (``ops/cuda/filter_kernel``)."""
     A_LT: torch.Tensor
     U: torch.Tensor
     GT: torch.Tensor

@@ -10,7 +10,9 @@ the seconds since start:
 2. build: the five CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
    parallel, with each build's time;
 3. each kernel vs its plain version on the card: the knot kernel's fast
-   division against IEEE division over 2^30 operand pairs; the
+   division against IEEE division over 2^30 operand pairs, the classifier
+   kernel's over its constant divisors x 2^25 numerators and 2^28 random
+   pairs; the
    knot-quantile kernel against ``ops/knot_quantile.rolling_quantile_knots``
    on the cases of tests/test_knot_kernel.py, knots 2-5 samples apart (more
    segments a window than a lane group holds in registers), all-flat knots
@@ -24,15 +26,18 @@ the seconds since start:
    ``corrections.rhythm_scan_plain`` on four one-minute recordings (rows cut
    to 0, 1, 2 and 4 peaks, a row at full capacity), float32 and float64,
    kick-start off and on, with and without the trace: every field equal;
-   the blocked filter against ``ops/filter.lfilter_plain`` (short rows, a
-   ragged last block, 2-6 states, both dtypes, the main path's length);
+   the blocked filter against ``ops/filter.lfilter_plain`` and each of its
+   phase entry points (``filter_kernel.contributions`` / ``carry_scan`` /
+   ``apply``) against its ``BlockFilter`` piece (short rows, a ragged last
+   block, 2-6 states, both dtypes, the main path's length, one long row);
 4. the main path at full width: 16 ten-minute recordings (302 Hz,
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
    at float32, stride 64, ``quantile_backend="auto"``; launch counts (the
    filter kernel twice, the knot kernel twice, the classifier scan twice,
    the rhythm scan once), warm wall time, a per-stage breakdown, and each
    of those kernels against its plain version on the main path's own
-   inputs with its time, bound and plain-version time;
+   inputs with its time, bound and plain-version time (the classifier scan
+   timed in both its passes);
 5. accuracy against the CPU reference's beats and BPM curves
    (``bench_cpu_baseline.json``): worst beat F1 >= 0.99, BPM MAE < 0.5;
 6. the card against the port on the CPU, recordings 0 and 1;
@@ -64,7 +69,9 @@ the seconds since start:
    beside phase 4's); a world of 1 on NCCL runs ``fleet_summary``; sp — 4
    gloo ranks, each holding a quarter of a two-hour recording on the card,
    hold the sharded envelope, quantile and filtfilt against the local
-   functions; the host — ``analyze_files_batched(mesh=...)`` on 2 ranks
+   functions, the filtfilt's relay running on the filter kernel's phase
+   entry points (their launches per rank) and equal bit for bit to the same
+   relay on ``BlockFilter``'s plain pieces; the host — ``analyze_files_batched(mesh=...)`` on 2 ranks
    against an unsharded run at one file a batch, and both against phase 9's
    chunk of 16 (equal positions and CSV: a recording's result does not
    depend on its batch); and ``utils.profiling.device_trace`` around
@@ -129,13 +136,22 @@ OPS_DESCENT_STEP, DESCENT_STEPS = 5, 32
 PEAK_ISSUE_OPS = 132 * 128 * 1.98e9
 OPS_DIGIT_ROUND, DIGIT_ROUNDS, OPS_KEY_ONCE = 3, 4, 1
 OPS_ANCHOR = DIGIT_ROUNDS * 256 * 2
-# The scan kernels' bound is the dependent chain of one step times the slots
-# (csrc/classify_scan.cu and csrc/rhythm_scan.cu count their chains): ALU
-# operations at 4 cycles each and IEEE divisions at 40 (div.rn.f32's
-# subroutine), at the card's maximum SM clock as nvidia-smi reports it.
-CLASSIFY_CHAIN_ALU, CLASSIFY_CHAIN_DIV = 35, 4
+# The scan kernels' bound is the longest carry-dependent chain of one step
+# times the slots (csrc/classify_scan.cu and csrc/rhythm_scan.cu count their
+# chains): ALU operations at 4 cycles each and IEEE divisions by a carried
+# value at 40 (div.rn.f32's subroutine), at the card's maximum SM clock as
+# nvidia-smi reports it.  A division by a constant counts as the hoisted fast
+# path's 3 dependent operations.  The classifier's four chains from one
+# step's belief to the next one's, as (ALU operations, divisions); the
+# longest in cycles is the bound.
+CLASSIFY_CHAINS = {"base confidence": (33, 0), "penalty": (37, 1),
+                   "interval penalty": (22, 2), "lone check": (30, 2)}
 RHYTHM_CHAIN_ALU, RHYTHM_CHAIN_DIV = 6, 1
 ALU_CYCLES, DIV_CYCLES = 4, 40
+# The block filter's carry scan: one step of a row's chain is a product's
+# multiply, its m - 1 adds and + C[k]: m + 1 dependent operations.
+FILTER_LONG_ROW = 362_401
+CLASSIFY_DIVISION_NUMERATORS = 1 << 24   # per constant divisor
 STRIDED_RTOL = 1e-6     # tests/test_pallas_quantile.py:26
 # Phase 10: the fleet means of 4 ranks' partial sums against one sum over
 # the batch, both float32: 16 terms summed in another order.
@@ -457,8 +473,8 @@ def scan_bound(x, want_trace: bool, clock_hz: float) -> tuple:
     if want_trace:
         per_slot += len(classify_kernel.KERNEL_FIELDS) * t + 4 + 1
     t_bytes = (bsz * cap * per_slot + bsz * (4 + t)) / PEAK_BYTES_S * 1e3
-    cycles = cap * (CLASSIFY_CHAIN_ALU * ALU_CYCLES + CLASSIFY_CHAIN_DIV * DIV_CYCLES)
-    t_ops = cycles / clock_hz * 1e3
+    step = max(alu * ALU_CYCLES + div * DIV_CYCLES for alu, div in CLASSIFY_CHAINS.values())
+    t_ops = cap * step / clock_hz * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -578,12 +594,13 @@ def check_scan_cases(dev) -> tuple:
     return worst_c, worst_r
 
 
-def filter_bound(x, L: int, m: int) -> tuple:
+def filter_bound(x, L: int, m: int, clock_hz: float) -> tuple:
     """Least time for the blocked filter of ``x`` (B, n): the row read and
-    written once over HBM bandwidth, and its unfused operations (block
-    contributions, the carry scan, each output's carry-in product and
-    in-block Toeplitz sum) over the float32 peak.  Returns (ms,
-    'bytes'|'operations')."""
+    written once over HBM bandwidth, and the larger of its unfused
+    operations (block contributions, the carry scan, each output's carry-in
+    product and in-block Toeplitz sum) over the float32 peak and a row's
+    carry-scan chain (nb steps of m + 1 dependent operations) at the SM
+    clock.  Returns (ms, 'bytes'|'operations')."""
     bsz, n = x.shape
     nb = -(-n // L)
     pos = np.arange(n) % L                       # each output's lag count
@@ -591,7 +608,7 @@ def filter_bound(x, L: int, m: int) -> tuple:
                + nb * (m * m + (m - 1) * m + m)  # the carry scan
                + n * (1 + m + (m - 1) + 2)       # b0 x, S0 @ G^T, two adds
                + 2 * int(pos.sum()))             # the Toeplitz lags
-    t_ops = bsz * ops_row / PEAK_F32_FLOPS * 1e3
+    t_ops = max(bsz * ops_row / PEAK_F32_FLOPS, nb * (m + 1) * ALU_CYCLES / clock_hz) * 1e3
     t_bytes = (2 * x.numel() + bsz * m) * x.element_size() / PEAK_BYTES_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -599,7 +616,7 @@ def filter_bound(x, L: int, m: int) -> tuple:
 def filter_cases():
     """(name, b, a, x, zi) for the blocked filter kernel: rows shorter than
     one block, a ragged last block, band-pass orders 1-3 (2-6 states), both
-    dtypes, and phase 4's batch length."""
+    dtypes, phase 4's batch length and one long row."""
     from bpm_analysis_tpu_torch.ops import filter as filt
 
     rng = np.random.RandomState(23)
@@ -609,7 +626,8 @@ def filter_cases():
                                       ("order_1", 1, (2, 3000), np.float32),
                                       ("order_3_f64", 3, (2, 3000), np.float64),
                                       ("float64", 2, (4, 5000), np.float64),
-                                      ("engine_length", 2, (BATCH, 181230), np.float32)):
+                                      ("engine_length", 2, (BATCH, 181230), np.float32),
+                                      ("long_row", 2, (1, FILTER_LONG_ROW), np.float32)):
         b, a = filt.butter_bandpass(order, 20.0, 150.0, SR)
         x = (rng.randn(*shape) * 500).astype(dtype)
         zi = filt.lfilter_zi(b, a)[None, :] * x[:, :1]
@@ -617,9 +635,35 @@ def filter_cases():
     return cases
 
 
+def filter_phase_errors(b, a, x: torch.Tensor, zi: torch.Tensor) -> dict:
+    """Max abs error of each phase entry point of the filter kernel
+    (``filter_kernel.contributions`` / ``carry_scan`` / ``apply``) against its
+    ``BlockFilter`` piece on the same inputs, on ``x``'s device; inf where
+    they are not equal bit for bit."""
+    from bpm_analysis_tpu_torch.ops import filter as filt
+    from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
+
+    bsz, n = x.shape
+    L = min(256, max(8, n))
+    nb = -(-n // L)
+    bf = filt.BlockFilter.build(b, a, L, x.dtype, x.device)
+    X = torch.nn.functional.pad(x, (0, nb * L - n)).reshape(bsz, nb, L).contiguous()
+    C = bf.contributions(X)
+    s_exit, S0 = bf.carry_scan(C, zi)
+    pairs = {"contributions": (filter_kernel.contributions(bf, X), C)}
+    s_got, S0_got = filter_kernel.carry_scan(bf, C, zi)
+    pairs["carry_scan"] = (torch.stack([s_got, S0_got[:, -1]]), torch.stack([s_exit, S0[:, -1]]))
+    pairs["carry_ins"] = (S0_got, S0)
+    pairs["apply"] = (filter_kernel.apply(bf, X, S0), bf.apply(X, S0))
+    torch.cuda.synchronize()
+    return {name: (float((g - e).abs().max()) if torch.equal(g, e) else float("inf"))
+            for name, (g, e) in pairs.items()}
+
+
 def check_filter_cases(dev) -> float:
-    """The blocked filter kernel against ``lfilter_plain`` on the card:
-    equal bit for bit.  Returns the max abs error (0)."""
+    """The blocked filter kernel and each of its phase entry points against
+    the plain version on the card: equal bit for bit.  Returns the max abs
+    error (0)."""
     from bpm_analysis_tpu_torch.ops import filter as filt
     from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
 
@@ -631,8 +675,14 @@ def check_filter_cases(dev) -> float:
         torch.cuda.synchronize()
         err = float((got - exp).abs().max())
         worst = max(worst, err)
-        log(f"  filter kernel vs plain [{name}] {x.shape} {x.dtype}: max abs err {err}")
+        phases = filter_phase_errors(b, a, xt, zt)
+        worst = max(worst, *phases.values())
+        log(f"  filter kernel vs plain [{name}] {x.shape} {x.dtype}: max abs err {err}; "
+            f"phase entry points {phases}")
         check(torch.equal(got, exp), f"filter kernel differs from its plain version on {name}")
+        check(all(v == 0 for v in phases.values()),
+              f"a filter phase entry point differs from its BlockFilter piece on {name}: "
+              f"{phases}")
     return worst
 
 
@@ -645,6 +695,8 @@ def reset_launches():
     classify_kernel.launches = 0
     rhythm_kernel.launches = 0
     filter_kernel.launches = 0
+    for name in filter_kernel.phase_launches:
+        filter_kernel.phase_launches[name] = 0
 
 
 def read_launches() -> dict:
@@ -1230,10 +1282,14 @@ def nccl_rank(result_np):
 
 def sp_rank(x, series):
     """Phase 10's sp rank: its quarter of the two-hour recording on the
-    card, each sharded function run cold, then timed between barriers; rank
-    0 returns the gathered series."""
+    card, each sharded function run cold, then timed between barriers, with
+    the filter kernel's phase launches counted over the timed filtfilt; then
+    the filtfilt once more on ``BlockFilter``'s plain pieces (the relay
+    before it ran on the kernel's phases).  Rank 0 returns the gathered
+    series."""
     import torch.distributed as dist
 
+    from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
     from bpm_analysis_tpu_torch.parallel import mesh as pmesh, seqshard
 
     m = pmesh.make_mesh(sp=SP_RANKS)
@@ -1246,10 +1302,12 @@ def sp_rank(x, series):
                                                                         150.0),
     }
     out = {"device": str(m.device), "seconds": {}, "whole": {}}
-    for name, fn in runs.items():
+
+    def timed(name, fn):
         fn()
         synchronize()
         dist.barrier()
+        reset_launches()
         t0 = time.perf_counter()
         block = fn()
         synchronize()
@@ -1258,6 +1316,20 @@ def sp_rank(x, series):
         whole = seqshard.gather_sequence(m, block)
         if m.index == 0:
             out["whole"][name] = whole.cpu().numpy()
+
+    for name, fn in runs.items():
+        timed(name, fn)
+        if name == "filtfilt":
+            out["phase_launches"] = dict(filter_kernel.phase_launches)
+    real = {name: getattr(filter_kernel, name) for name in out["phase_launches"]}
+    try:
+        filter_kernel.contributions = lambda bf, X: bf.contributions(X)
+        filter_kernel.carry_scan = lambda bf, C, s: bf.carry_scan(C, s)
+        filter_kernel.apply = lambda bf, X, S0: bf.apply(X, S0)
+        timed("filtfilt_plain_pieces", runs["filtfilt"])
+    finally:
+        for name, fn in real.items():
+            setattr(filter_kernel, name, fn)
     return out
 
 
@@ -1413,6 +1485,18 @@ def check_scale_out(card, cfg, batch, res, best, oracle, host_run, knot, strided
     log(f"sp: {SP_RANKS} ranks on {[r['device'] for r in sp]}, {n} samples "
         f"({n // SP_RANKS} a rank), {time.perf_counter() - t0:.1f}s with startup")
     whole = sp[0]["whole"]
+    phase_launches = [r["phase_launches"] for r in sp]
+    log(f"  sp filtfilt: the filter kernel's phase launches per rank {phase_launches}")
+    check(all(n > 0 for r in phase_launches for n in r.values()),
+          f"sp filtfilt: a phase entry point was not launched: {phase_launches}")
+    bits = f"u{whole['filtfilt'].itemsize}"
+    same = np.array_equal(whole["filtfilt"].view(bits),
+                          whole["filtfilt_plain_pieces"].view(bits))
+    log(f"  sp filtfilt on the kernel's phases {sp[0]['seconds']['filtfilt']:.4f}s, on "
+        f"BlockFilter's plain pieces {sp[0]['seconds']['filtfilt_plain_pieces']:.4f}s on "
+        f"{card}; bit-equal: {same}")
+    check(same, "sp filtfilt: the relay on the kernel's phases differs from the relay on "
+                "the plain pieces")
     for name in ("envelope", "quantile", "filtfilt"):
         exp = local[name].cpu().numpy()
         got = whole[name]
@@ -1531,6 +1615,15 @@ def main() -> int:
     log(f"  knot kernel's fast division vs IEEE division: {mismatches} of "
         f"{4 * DIVISION_PAIRS} operand pairs differ")
     check(mismatches == 0, "the knot kernel's fast division differs from IEEE division")
+    divisors = classify_kernel.constant_divisors(SR, engine_config())
+    c_mismatches = sum(classify_kernel.division_mismatches(
+        divisors, CLASSIFY_DIVISION_NUMERATORS, seed) for seed in range(2))
+    r_mismatches = classify_kernel.division_mismatches(None, DIVISION_PAIRS, 5)
+    log(f"  classify kernel's fast division vs IEEE division: {c_mismatches} of "
+        f"{2 * CLASSIFY_DIVISION_NUMERATORS * len(divisors)} quotients by its constant "
+        f"divisors {divisors.tolist()} differ, {r_mismatches} of {DIVISION_PAIRS} random pairs")
+    check(c_mismatches == 0 and r_mismatches == 0,
+          "the classify kernel's fast division differs from IEEE division")
     knot_err = check_knot_cases(dev)
     strided_err = check_strided_cases(dev)
     classify_err, rhythm_err = check_scan_cases(dev)
@@ -1610,13 +1703,13 @@ def main() -> int:
             f"{0 if exp[1] is None else len(exp[1])} trace fields; plain {ms:.1f} ms")
         check(err == 0, f"classify kernel differs from its plain version on the {label} pass")
         scan_ms["classify_plain"] = ms
-    classify_call = c_captured[-1]
-    a, k = classify_call
-    c_kernel_ms = cuda_ms(lambda: real_classify(*a, **k), 20)
-    c_bound_ms, c_bound_by = scan_bound(a[0], k["want_trace"], clock_hz)
-    log(f"classify kernel at the main path's shapes (main pass): {c_kernel_ms:.4f} ms (plain "
-        f"{scan_ms['classify_plain']:.1f} ms, bound {c_bound_ms:.5f} ms by {c_bound_by}) "
-        f"on {card}")
+    for label, (a, k) in zip(("preliminary", "main"), c_captured):
+        c_kernel_ms = cuda_ms(lambda: real_classify(*a, **k), 20)
+        c_bound_ms, c_bound_by = scan_bound(a[0], k["want_trace"], clock_hz)
+        log(f"classify kernel at the main path's shapes ({label} pass): {c_kernel_ms:.4f} ms "
+            f"(bound {c_bound_ms:.5f} ms by {c_bound_by}, "
+            f"{100 * c_bound_ms / c_kernel_ms:.1f}% of it) on {card}")
+    log(f"  classify plain version (main pass): {scan_ms['classify_plain']:.1f} ms")
     rhythm_call = r_captured[-1]
     a, k = rhythm_call
     got = real_rhythm(*a, **k)
@@ -1638,10 +1731,10 @@ def main() -> int:
               f"filter kernel differs from its plain version on the {label} pass")
     f_kernel_ms = cuda_ms(lambda: real_filter(*a, **k), 20)
     f_L = min(256, max(8, a[2].shape[1]))
-    f_bound_ms, f_bound_by = filter_bound(a[2], f_L, len(a[1]) - 1)
+    f_bound_ms, f_bound_by = filter_bound(a[2], f_L, len(a[1]) - 1, clock_hz)
     log(f"filter kernel at the main path's shapes {tuple(a[2].shape)}: both passes equal; "
         f"{f_kernel_ms:.4f} ms (plain {f_plain_ms:.1f} ms, bound {f_bound_ms:.5f} ms by "
-        f"{f_bound_by}) on {card}")
+        f"{f_bound_by}, {100 * f_bound_ms / f_kernel_ms:.1f}% of it) on {card}")
     log("phase 4 main path: ok")
 
     # ---- 5. accuracy against the CPU reference -----------------------------

@@ -1,5 +1,6 @@
 """The CUDA kernels (knot quantile, strided quantile, classifier scan,
-rhythm scan, blocked filter) against their plain versions, on the card.
+rhythm scan, blocked filter and its phase entry points) against their plain
+versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The machine
 with the card has no JAX, so run these without the suite's conftest (which
@@ -145,6 +146,82 @@ def test_filter_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         filter_kernel.lfilter(b9, a9, xt, torch.zeros(xt.shape[0], 10, device="cuda"))
     assert filter_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FILTER_CASES, ids=[c[0] for c in FILTER_CASES])
+def test_block_filter_phase_entry_points_match_their_plain_pieces(case):
+    """``filter_kernel.contributions`` / ``carry_scan`` / ``apply`` each
+    equal their ``BlockFilter`` piece bit for bit (the carry scan's exit
+    state and carry-ins both), both dtypes, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, b, a, x, zi = case
+    xt, zt = torch.from_numpy(x).cuda(), torch.from_numpy(zi).cuda()
+    before = dict(filter_kernel.phase_launches)
+    errors = chip_smoke.filter_phase_errors(b, a, xt, zt)
+    assert errors == {"contributions": 0.0, "carry_scan": 0.0, "carry_ins": 0.0,
+                      "apply": 0.0}
+    assert filter_kernel.phase_launches == {k: v + 1 for k, v in before.items()}
+
+
+@pytest.mark.gpu
+def test_filter_phase_wrappers_reject_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.ops import filter as filt
+
+    _, b, a, x, zi = FILTER_CASES[1]
+    n, L = x.shape[1], 256
+    nb = -(-n // L)
+    bf = filt.BlockFilter.build(b, a, L, torch.float32, "cuda")
+    X = torch.nn.functional.pad(torch.from_numpy(x).cuda(), (0, nb * L - n)).reshape(-1, nb, L)
+    zt = torch.from_numpy(zi).cuda()
+    C = bf.contributions(X)
+    S0 = bf.carry_scan(C, zt)[1]
+    before = dict(filter_kernel.phase_launches)
+    for bad in (X.double(), X[:, :, :-1], X.transpose(0, 1).contiguous().transpose(0, 1),
+                X.reshape(X.shape[0], -1)):
+        with pytest.raises(ValueError):
+            filter_kernel.contributions(bf, bad)
+        with pytest.raises(ValueError):
+            filter_kernel.apply(bf, bad, S0)
+    for c_bad, s_bad in ((C.double(), zt), (C, zt.double()), (C, zt[:-1]), (C[:, :, :-1], zt),
+                         (C, zt.cpu())):
+        with pytest.raises(ValueError):
+            filter_kernel.carry_scan(bf, c_bad, s_bad)
+    with pytest.raises(ValueError):
+        filter_kernel.apply(bf, X, S0[:, :-1])
+    cpu_bf = filt.BlockFilter.build(b, a, L, torch.float32, "cpu")
+    with pytest.raises(ValueError):
+        filter_kernel.contributions(cpu_bf, X)                 # tables on another device
+    b9, a9 = filt.butter_bandpass(5, 20.0, 150.0, 302)          # 10 states
+    bf9 = filt.BlockFilter.build(b9, a9, L, torch.float32, "cuda")
+    with pytest.raises(ValueError):
+        filter_kernel.contributions(bf9, X)
+    assert filter_kernel.phase_launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["engine", "default", "random"])
+def test_classify_kernel_constant_division_equals_ieee_division(config):
+    """The classify kernel's float32 fast division (with its range guard and
+    the IEEE fallback) gives div.rn.f32's quotient bit for bit: by each
+    constant divisor (the BPM span, the sample rate, 2, each chain interp's
+    dx) over 2^22 numerators, for the engine's and the default
+    configuration's constants, and over 2^26 random pairs (the carried
+    divisors)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.config import DEFAULT_CONFIG
+
+    if config == "random":
+        assert classify_kernel.division_mismatches(None, 1 << 26, seed=4) == 0
+        return
+    cfg = chip_smoke.engine_config() if config == "engine" else DEFAULT_CONFIG
+    divisors = classify_kernel.constant_divisors(302, cfg)
+    assert len(divisors) >= 3 + 1 + 3 + 3
+    assert classify_kernel.division_mismatches(divisors, 1 << 22, seed=3) == 0
 
 
 @pytest.mark.gpu

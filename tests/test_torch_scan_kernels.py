@@ -3,11 +3,19 @@ CPU and held bit for bit against their plain versions.
 
 The kernels run only on a card (tests/test_torch_cuda.py).  These tests keep
 their arithmetic checkable here: each emulation walks one recording's slots
-as the kernel's thread does, with np.float32 / np.float64 scalars, the
-kernel's constant tables (``classify_kernel.constants``), a 64-bit mask for
-the 20-slot paired ring and 4-bit masks for the kick-start rings,
-NaN-propagating clamp / maximum / minimum, and the kernel's upper-bound
-search for Interp's segment.
+as the kernel does, with np.float32 / np.float64 scalars, the kernel's
+constant tables (``classify_kernel.constants``), a 64-bit mask for the
+20-slot paired ring and 4-bit masks for the kick-start rings and
+NaN-propagating clamp / maximum / minimum.  The classifier's emulation
+follows its block's design: per chunk of 64 slots, the helper warps'
+slot-only precompute (the base interp's segment rows and quotient, the slot
+bits), the chain over that ring with the pairing-ratio and stability tables
+computed once, Interp's segment as a count of the knots not greater than x
+(on the chain, of the interior knots), both candidate belief updates before
+the decision with the last appended slots' quotients carried, and the trace
+staged per chunk, then flushed.  Its divisions by a constant are IEEE here; the card
+holds the kernel's fast path for them against IEEE division
+(tests/test_torch_cuda.py).
 
 * ``csrc/classify_scan.cu`` against ``models/classifier.scan_plain``: all
   26 trace fields and the classes (NaN equal to NaN), float32 and float64,
@@ -153,20 +161,30 @@ def _minimum(a, b):
     return a if _isnan(a) else (b if _isnan(b) else min(a, b))
 
 
-def _upper_bound(xp, k, x):
-    start, end = 0, k
-    while start < end:
-        mid = start + ((end - start) >> 1)
-        if not (xp[mid] > x):
-            start = mid + 1
-        else:
-            end = mid
-    return start
+CHUNK = 64                     # the kernel's kChunk
+HALF_IDX, KICK_IDX = 1, 2      # pairing-ratio table rows past hist (hist + 1, hist + 2)
 
 
-def _interp_const(tb, x):
+def _segment(xp, k, x):
+    """The kernel's segment index: the count of knots not greater than x
+    (searchsorted(right=True) for sorted knots, k for a NaN x), clamped."""
+    cnt = sum(1 for j in range(k) if not (xp[j] > x))
+    return min(max(cnt, 1), k - 1) - 1
+
+
+def _interior_segment(xp, k, x):
+    """The chain's segment index: the count over the interior knots 1..k-2
+    alone, capped at k - 2."""
+    return min(sum(1 for j in range(1, k - 1) if not (xp[j] > x)), k - 2)
+
+
+def _interp(tb, x, segment=_segment):
+    """Interp.__call__ with the constant values of table ``tb``: the kernel's
+    chain interps (``segment=_interior_segment``) and its set-up's stability
+    table (each division here is IEEE; the card holds the kernel's fast
+    division against it)."""
     k = int(tb[T_K])
-    im1 = min(max(_upper_bound(tb[T_XP:], k, x), 1), k - 1) - 1
+    im1 = segment(tb[T_XP:], k, x)
     f_lo = tb[T_FLO + im1]
     f = f_lo + ((x - tb[T_XP + im1]) / tb[T_DX + im1]) * tb[T_DF + im1]
     if tb[T_DX0 + im1] != 0:
@@ -178,24 +196,32 @@ def _interp_const(tb, x):
     return f
 
 
-def _interp_curve(tb, x, blend):
+def _precompute(tb, arr, b, t, cnt, T, sr, eps):
+    """A helper thread's slot: the inputs, the bits and the base interp's
+    row (ba, bb), next row (bc, bd) and quotient bq, or ``lo`` where the
+    blend is f_lo alone."""
+    dv = arr["deviation"][b, t]
     k = int(tb[T_K])
-    im1 = min(max(_upper_bound(tb[T_XP:], k, x), 1), k - 1) - 1
-    f_lo = tb[T_FLO + im1] + tb[T_DF + im1] * blend
-    f_hi = tb[T_FLO + im1 + 1] + tb[T_DF + im1 + 1] * blend
-    f = f_lo + ((x - tb[T_XP + im1]) / tb[T_DX + im1]) * (f_hi - f_lo)
-    if tb[T_DX0 + im1] != 0:
-        f = f_lo
-    if x < tb[T_XP]:
-        f = tb[T_FLO] + tb[T_DF] * blend
-    if x > tb[T_XP + k - 1]:
-        f = tb[T_FLO + k - 1] + tb[T_DF + k - 1] * blend
-    return f
+    im1 = _segment(tb[T_XP:], k, dv)
+    lo_row = (0 if dv < tb[T_XP] else k - 1 if dv > tb[T_XP + k - 1]
+              else im1 if tb[T_DX0 + im1] != 0 else None)
+    slot = dict(p=int(arr["positions"][b, t]), ivl=arr["interval_sec"][b, t],
+                r21=arr["s2_s1_ratio"][b, t], st=arr["strength"][b, t],
+                bst=arr["boost"][b, t], fl=int(arr["flags"][b, t]) & 7,
+                active=t < cnt, is_last=t == cnt - 1, lo=lo_row is not None)
+    slot.update(p_sec=T(slot["p"]) / sr, st_eps=slot["st"] + eps)
+    if lo_row is not None:
+        slot.update(ba=tb[T_FLO + lo_row], bb=tb[T_DF + lo_row], bc=T(0), bd=T(0), bq=T(0))
+    else:
+        slot.update(ba=tb[T_FLO + im1], bb=tb[T_DF + im1], bc=tb[T_FLO + im1 + 1],
+                    bd=tb[T_DF + im1 + 1], bq=(dv - tb[T_XP + im1]) / tb[T_DX + im1])
+    return slot
 
 
 def emulate_classify(x: tcls.ScanInputs, cfg, want_trace: bool):
-    """(peak_class, {field: (B, cap)}) of the kernel's threads, one row at a
-    time, slot by slot, in the kernel's operations."""
+    """(peak_class, {field: (B, cap)}) of the kernel's blocks, one row at a
+    time: per chunk of 64 slots the helpers' slot ring, then the chain over
+    it into the chunk's out buffers, then the flush of those buffers."""
     dtype = x.deviation.dtype
     T = np.float32 if dtype == torch.float32 else np.float64
     floats, si = classify_kernel.constants(SR, cfg, dtype)
@@ -203,6 +229,10 @@ def emulate_classify(x: tcls.ScanInputs, cfg, want_trace: bool):
     tables = [sc[32 + i * 48:32 + (i + 1) * 48] for i in range(5)]
     kick = cfg.compat.kickstart_effective
     hist = int(si[K_HIST])
+    # The set-up's pairing-ratio tables: ring means, then 1/2 and the override.
+    ptab = [T(i) / sc[C_HIST] for i in range(hist + 1)] + [sc[C_HALF], sc[C_KICK_OVR]]
+    with np.errstate(all="ignore"):
+        sftab = [_interp(tables[I_SF], v) for v in ptab]
     arr = {f: getattr(x, f).numpy() for f in x._fields}
     bsz, cap = arr["positions"].shape
     pc = np.zeros((bsz, cap), np.int32)
@@ -210,131 +240,164 @@ def emulate_classify(x: tcls.ScanInputs, cfg, want_trace: bool):
     lone_out = np.zeros((bsz, cap), np.int32)
     paired_out = np.zeros((bsz, cap), bool)
     zero, one = sc[C_ZERO], sc[C_ONE]
+
+    def chain_interp(tb, x):
+        return _interp(tb, x, _interior_segment)
+
+    def update(belief, rr, instant):
+        target = belief * sc[C_ONE_MINUS_LR] + instant * sc[C_LR]
+        max_change = rr * sc[C_MAX_CHANGE]
+        change = _minimum(_maximum(target - belief, -max_change), max_change)
+        return _clamp(belief + change, sc[C_MIN_BPM], sc[C_MAX_BPM])
+
     with np.errstate(all="ignore"):
         for b in range(bsz):
             pending, belief = False, arr["start_belief"][b]
             last_pos = prev_pos = -1
-            last_strength = T(0)
+            # The carried divisions of the last appended slots.
+            rr_keep = T(last_pos - prev_pos) / sc[C_SR]
+            inst_keep = (one / rr_keep) * sc[C_SIXTY]
+            last_sec = T(last_pos) / sc[C_SR]
+            ls_eps = T(0) + sc[C_EPS]
             cand_count, ring, rejections = 0, 0, 0
             ks_lone = ks_next = 0
             ks_prev = False
             cnt = int(arr["count"][b])
-            for t in range(cap):
-                p = int(arr["positions"][b, t])
-                dv, ivl = arr["deviation"][b, t], arr["interval_sec"][b, t]
-                r21, st = arr["s2_s1_ratio"][b, t], arr["strength"][b, t]
-                bst, fl = arr["boost"][b, t], int(arr["flags"][b, t])
-                active, is_last = t < cnt, t == cnt - 1
+            for t0 in range(0, cap, CHUNK):
+                n = min(CHUNK, cap - t0)
+                slots = [_precompute(tables[I_BASE], arr, b, t0 + u, cnt, T, sc[C_SR], sc[C_EPS])
+                         for u in range(n)]
+                chunk_pc = np.zeros(n, np.int32)
+                chunk_f = {f: np.zeros(n, T) for f in classify_kernel.KERNEL_FIELDS}
+                chunk_lone, chunk_paired = np.zeros(n, np.int32), np.zeros(n, bool)
+                for u, s in enumerate(slots):
+                    fl = s["fl"]
+                    ridx = hist + HALF_IDX if cand_count < hist else bin(ring).count("1")
+                    if kick:
+                        matches = bin(ks_lone & ks_next).count("1")
+                        lones = bin(ks_lone).count("1")
+                        if (ptab[ridx] < sc[C_KICK_THR] and cand_count >= 4 and lones >= 3
+                                and matches >= 3):
+                            ridx = hist + KICK_IDX
+                    pairing_ratio, sf = ptab[ridx], sftab[ridx]
 
-                ring_mean = T(bin(ring).count("1")) / sc[C_HIST]
-                pairing_ratio = sc[C_HALF] if cand_count < hist else ring_mean
-                if kick:
-                    matches = bin(ks_lone & ks_next).count("1")
-                    lones = bin(ks_lone).count("1")
-                    if (pairing_ratio < sc[C_KICK_THR] and cand_count >= 4 and lones >= 3
-                            and matches >= 3):
-                        pairing_ratio = sc[C_KICK_OVR]
+                    blend = _clamp((belief - sc[C_BPM_LOW]) / sc[C_BPM_SPAN], zero, one)
+                    f_lo = s["ba"] + s["bb"] * blend
+                    base_conf = (f_lo if s["lo"]
+                                 else f_lo + s["bq"] * ((s["bc"] + s["bd"] * blend) - f_lo))
+                    use_sf = cand_count >= 5
+                    conf = base_conf * sf if use_sf else base_conf
+                    eff = _clamp_min(belief, sc[C_BPM_LOW]) if fl & tcls.IN_RECOVERY else belief
+                    max_expected = chain_interp(tables[I_RATIO], eff)
+                    do_penalty = s["r21"] > max_expected
+                    # The kernel multiplies by 1/2: the same bits as / 2.
+                    severity = _clamp((s["r21"] / max_expected - one) * T(0.5), zero, one)
+                    assert sc[C_TWO] == 2
+                    penalty = severity * sc[C_PEN_SPAN] + sc[C_PEN_MIN]
+                    do_boost = (not do_penalty) and bool(fl & tcls.STRONG_S1)
+                    conf = (conf - penalty if do_penalty
+                            else (conf + s["bst"] if do_boost else conf))
+                    conf = one if _isnan(conf) else _clamp(conf, zero, one)
 
-                blend = _clamp((belief - sc[C_BPM_LOW]) / sc[C_BPM_SPAN], zero, one)
-                base_conf = _interp_curve(tables[I_BASE], dv, blend)
-                sf = _interp_const(tables[I_SF], pairing_ratio)
-                use_sf = cand_count >= 5
-                conf = base_conf * sf if use_sf else base_conf
-                eff = _clamp_min(belief, sc[C_BPM_LOW]) if fl & tcls.IN_RECOVERY else belief
-                max_expected = _interp_const(tables[I_RATIO], eff)
-                do_penalty = r21 > max_expected
-                severity = _clamp((r21 / max_expected - one) / sc[C_TWO], zero, one)
-                penalty = severity * sc[C_PEN_SPAN] + sc[C_PEN_MIN]
-                do_boost = (not do_penalty) and bool(fl & tcls.STRONG_S1)
-                conf = conf - penalty if do_penalty else (conf + bst if do_boost else conf)
-                conf = one if _isnan(conf) else _clamp(conf, zero, one)
+                    ivl = s["ivl"]
+                    expected_rr = (one / belief) * sc[C_SIXTY]
+                    max_interval = _clamp_max(expected_rr * sc[C_RR_FRAC], sc[C_IVL_CAP])
+                    pzs, pze = max_interval * sc[C_PZS], max_interval * sc[C_PZE]
+                    exceed_i = _clamp((ivl - pzs) / (pze - pzs + sc[C_EPS]), zero, one)
+                    ipen = exceed_i * sc[C_IPEN_MAX]
+                    do_ipen = bool(si[K_ENABLE_IPEN]) and ivl > max_interval and ivl > pzs
+                    if do_ipen:
+                        conf = _clamp_min(conf - ipen, zero)
+                    paired = bool(conf >= sc[C_PAIR_THR])
 
-                expected_rr = (one / belief) * sc[C_SIXTY]
-                max_interval = _clamp_max(expected_rr * sc[C_RR_FRAC], sc[C_IVL_CAP])
-                pzs, pze = max_interval * sc[C_PZS], max_interval * sc[C_PZE]
-                exceed_i = _clamp((ivl - pzs) / (pze - pzs + sc[C_EPS]), zero, one)
-                ipen = exceed_i * sc[C_IPEN_MAX]
-                do_ipen = bool(si[K_ENABLE_IPEN]) and ivl > max_interval and ivl > pzs
-                if do_ipen:
-                    conf = _clamp_min(conf - ipen, zero)
-                paired = bool(conf >= sc[C_PAIR_THR])
+                    p = s["p"]
+                    first_beat = cand_count == 0
+                    actual_rr = T(p - last_pos) / sc[C_SR]
+                    rhythm_dev = abs(actual_rr - expected_rr) / expected_rr
+                    rhythm_score = chain_interp(tables[I_RHYTHM], rhythm_dev)
+                    amp_ratio = s["st"] / ls_eps
+                    amp_score = chain_interp(tables[I_AMP], amp_ratio)
+                    lone_conf = rhythm_score * sc[C_W_RHYTHM] + amp_score * sc[C_W_AMP]
+                    conf_ok = bool(lone_conf >= sc[C_LONE_THR])
+                    fwd_fail = bool(ivl < expected_rr * sc[C_FWD_PCT]) and not fl & tcls.FWD_WAIVED
+                    lone_valid = first_beat or (conf_ok and not fwd_fail)
+                    lone_reason = (si[K_LONE_FIRST] if first_beat else si[K_LONE_REJ_CONF]
+                                   if not conf_ok else si[K_LONE_REJ_FWD] if fwd_fail
+                                   else si[K_LONE_OK])
+                    rej_after = (rejections + 1 if not lone_valid
+                                 and lone_reason == si[K_LONE_REJ_CONF] else 0)
+                    cascade = (not lone_valid) and rej_after >= si[K_CASCADE]
+                    lone_class = (si[K_LONE_VALIDATED] if lone_valid else si[K_LONE_CASCADE]
+                                  if cascade else si[K_NOISE])
+                    peak_class = (si[K_S2_PAIRED] if pending else si[K_LONE_LAST]
+                                  if s["is_last"] else si[K_S1_PAIRED] if paired else lone_class)
+                    if not s["active"]:
+                        peak_class = si[K_UNCLASSIFIED]
+                    processed = s["active"] and not pending
+                    appended = processed and (s["is_last"] or paired or lone_valid or cascade)
+                    appended_paired = processed and not s["is_last"] and paired
+                    new_last = p if appended else last_pos
+                    new_prev = last_pos if appended else prev_pos
+                    new_count = cand_count + int(appended)
 
-                first_beat = cand_count == 0
-                actual_rr = T(p - last_pos) / sc[C_SR]
-                rhythm_dev = abs(actual_rr - expected_rr) / expected_rr
-                rhythm_score = _interp_const(tables[I_RHYTHM], rhythm_dev)
-                amp_ratio = st / (last_strength + sc[C_EPS])
-                amp_score = _interp_const(tables[I_AMP], amp_ratio)
-                lone_conf = rhythm_score * sc[C_W_RHYTHM] + amp_score * sc[C_W_AMP]
-                conf_ok = bool(lone_conf >= sc[C_LONE_THR])
-                fwd_fail = bool(ivl < expected_rr * sc[C_FWD_PCT]) and not fl & tcls.FWD_WAIVED
-                lone_valid = first_beat or (conf_ok and not fwd_fail)
-                lone_reason = (si[K_LONE_FIRST] if first_beat else si[K_LONE_REJ_CONF]
-                               if not conf_ok else si[K_LONE_REJ_FWD] if fwd_fail
-                               else si[K_LONE_OK])
-                rej_after = (rejections + 1 if not lone_valid
-                             and lone_reason == si[K_LONE_REJ_CONF] else 0)
-                cascade = (not lone_valid) and rej_after >= si[K_CASCADE]
-                lone_class = (si[K_LONE_VALIDATED] if lone_valid else si[K_LONE_CASCADE]
-                              if cascade else si[K_NOISE])
-                peak_class = (si[K_S2_PAIRED] if pending else si[K_LONE_LAST] if is_last
-                              else si[K_S1_PAIRED] if paired else lone_class)
-                if not active:
-                    peak_class = si[K_UNCLASSIFIED]
-                processed = active and not pending
-                appended = processed and (is_last or paired or lone_valid or cascade)
-                appended_paired = processed and not is_last and paired
-                new_last = p if appended else last_pos
-                new_prev = last_pos if appended else prev_pos
-                new_count = cand_count + int(appended)
+                    # Both candidate updates, then the decision's pick.
+                    inst_append = (one / actual_rr) * sc[C_SIXTY]
+                    upd_append = update(belief, actual_rr, inst_append)
+                    upd_keep = update(belief, rr_keep, inst_keep)
+                    rr_new = actual_rr if appended else rr_keep
+                    can_update = processed and new_count > 1 and new_prev >= 0 and rr_new > 0
+                    new_belief = ((upd_append if appended else upd_keep) if can_update
+                                  else belief)
 
-                rr_new = T(new_last - new_prev) / sc[C_SR]
-                new_belief = belief
-                if processed and new_count > 1 and new_prev >= 0 and rr_new > 0:
-                    instant = (one / rr_new) * sc[C_SIXTY]
-                    target = belief * sc[C_ONE_MINUS_LR] + instant * sc[C_LR]
-                    max_change = rr_new * sc[C_MAX_CHANGE]
-                    change = _minimum(_maximum(target - belief, -max_change), max_change)
-                    new_belief = _clamp(belief + change, sc[C_MIN_BPM], sc[C_MAX_BPM])
+                    chunk_pc[u] = peak_class
+                    if want_trace:
+                        nan = sc[C_NAN]
+                        row = dict(
+                            blend_ratio=blend, base_conf=base_conf, pairing_ratio=pairing_ratio,
+                            stability_factor=sf if use_sf else nan,
+                            max_expected_ratio=max_expected,
+                            penalty_amount=penalty if do_penalty else nan,
+                            boost_amount=s["bst"] if do_boost else nan,
+                            max_interval_sec=max_interval,
+                            interval_penalty=ipen if do_ipen else nan, final_conf=conf,
+                            lone_conf=lone_conf, rhythm_score=rhythm_score,
+                            actual_rr_sec=actual_rr, expected_rr_sec=expected_rr,
+                            amp_score=amp_score, amp_ratio=amp_ratio, belief=new_belief,
+                            belief_time_sec=((s["p_sec"] if appended else last_sec)
+                                             if processed and new_count > 0 else nan))
+                        for f, v in row.items():
+                            chunk_f[f][u] = v
+                        chunk_lone[u] = lone_reason
+                        chunk_paired[u] = paired
 
-                pc[b, t] = peak_class
-                if want_trace:
-                    nan = sc[C_NAN]
-                    row = dict(
-                        blend_ratio=blend, base_conf=base_conf, pairing_ratio=pairing_ratio,
-                        stability_factor=sf if use_sf else nan, max_expected_ratio=max_expected,
-                        penalty_amount=penalty if do_penalty else nan,
-                        boost_amount=bst if do_boost else nan, max_interval_sec=max_interval,
-                        interval_penalty=ipen if do_ipen else nan, final_conf=conf,
-                        lone_conf=lone_conf, rhythm_score=rhythm_score, actual_rr_sec=actual_rr,
-                        expected_rr_sec=expected_rr, amp_score=amp_score, amp_ratio=amp_ratio,
-                        belief=new_belief,
-                        belief_time_sec=(T(new_last) / sc[C_SR]
-                                         if processed and new_count > 0 else nan))
-                    for f, v in row.items():
-                        out[f][b, t] = v
-                    lone_out[b, t] = lone_reason
-                    paired_out[b, t] = paired
-
-                if kick:
-                    appended_lone = appended and not appended_paired
-                    noise_step = (processed and not is_last and not paired
-                                  and not lone_valid and not cascade)
-                    marked = ks_next | (8 if noise_step and ks_prev else 0)
+                    if kick:
+                        appended_lone = appended and not appended_paired
+                        noise_step = (processed and not s["is_last"] and not paired
+                                      and not lone_valid and not cascade)
+                        marked = ks_next | (8 if noise_step and ks_prev else 0)
+                        if appended:
+                            ks_lone = (ks_lone >> 1) | (8 if appended_lone else 0)
+                            ks_next = marked >> 1
+                        else:
+                            ks_next = marked
+                        if processed:
+                            ks_prev = appended_lone
                     if appended:
-                        ks_lone = (ks_lone >> 1) | (8 if appended_lone else 0)
-                        ks_next = marked >> 1
-                    else:
-                        ks_next = marked
-                    if processed:
-                        ks_prev = appended_lone
-                if appended:
-                    last_strength = st
-                    ring = (ring >> 1) | (int(appended_paired) << (hist - 1))
-                if processed and not is_last:
-                    rejections = 0 if (paired or lone_valid or cascade) else rej_after
-                pending = processed and not is_last and paired
-                belief, last_pos, prev_pos, cand_count = new_belief, new_last, new_prev, new_count
+                        ls_eps, last_sec = s["st_eps"], s["p_sec"]
+                        rr_keep, inst_keep = actual_rr, inst_append
+                        ring = (ring >> 1) | (int(appended_paired) << (hist - 1))
+                    if processed and not s["is_last"]:
+                        rejections = 0 if (paired or lone_valid or cascade) else rej_after
+                    pending = processed and not s["is_last"] and paired
+                    belief, last_pos, prev_pos, cand_count = (new_belief, new_last, new_prev,
+                                                              new_count)
+                # The helpers' flush of the finished chunk.
+                pc[b, t0:t0 + n] = chunk_pc
+                if want_trace:
+                    for f in classify_kernel.KERNEL_FIELDS:
+                        out[f][b, t0:t0 + n] = chunk_f[f]
+                    lone_out[b, t0:t0 + n] = chunk_lone
+                    paired_out[b, t0:t0 + n] = chunk_paired
     if not want_trace:
         return pc, None
     out.update(peak_class=pc, lone_reason=lone_out, paired=paired_out)

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time the classifier-scan and block-filter kernels at chip_smoke.py's
+phase-4 inputs on the card, with each launch's device time.
+
+    python3 tools/torch_kernel_time.py [--root CHECKOUT] [--reps 20]
+
+Drives phase 4's batch (16 ten-minute synthetic recordings at the engine
+configuration) through the main path once, captures the arguments of both
+``classify_scan`` calls (the preliminary pass without the trace, the main
+pass with it) and of both ``lfilter`` calls (the filtfilt's passes), holds
+each kernel against its plain version (max abs error), and times each call
+with CUDA events (mean of ``--reps`` calls after a warm-up) and under
+``torch.profiler`` (device microseconds per launch of each CUDA kernel, so
+the filter's three phases appear apart).  The package is imported from
+``--root`` (default: this checkout), so two trees can be timed on one card
+in one call, in turns.  Prints one JSON line with the card's name and power
+limit.  Exits non-zero without a CUDA device.
+"""
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_time: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from bpm_analysis_tpu_torch import synth
+    from bpm_analysis_tpu_torch.models import classifier
+    from bpm_analysis_tpu_torch.ops import filter as filt
+    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, filter_kernel
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    cfg = cs.engine_config()
+    batch = np.stack([synth._quantize_int16(synth.synth_recording(s))
+                      for s in cs.SEEDS]).astype(np.float32)
+    cs.run_main_path(batch, cfg, "cuda")
+    c_calls, f_calls = [], []
+    cs.counted_run(batch, cfg, {(classify_kernel, "classify_scan"): c_calls,
+                                (filter_kernel, "lfilter"): f_calls})
+    out = {"card": card, "root": root, "kernels": {}}
+    calls = [(f"classify_scan {label}", classify_kernel.classify_scan,
+              lambda a, k: classifier.scan_plain(a[0], *a[2:], **k), cs.trace_error, a, k)
+             for label, (a, k) in zip(("preliminary", "main"), c_calls)]
+    calls += [(f"block_filter {label}", filter_kernel.lfilter,
+               lambda a, k: filt.lfilter_plain(*a, **k),
+               lambda g, e: float((g - e).abs().max()), a, k)
+              for label, (a, k) in zip(("forward", "backward"), f_calls)]
+    for name, fn, plain, error, a, k in calls:
+        err = error(fn(*a, **k), plain(a, k))
+        ms = cs.cuda_ms(lambda: fn(*a, **k), args.reps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn(*a, **k)
+            torch.cuda.synchronize()
+        launches = {}
+        for e in prof.key_averages():
+            device_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            kernel = re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "", e.key))[0]
+            if device_us > 0 and e.count and kernel.endswith("_kernel"):
+                launches[kernel] = device_us / e.count
+        out["kernels"][name] = {"max_abs_err": err, "ms": ms, "device_us_per_launch": launches}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
