@@ -39,7 +39,10 @@ def rhythm_scan(pos: torch.Tensor, amp: torch.Tensor, count: torch.Tensor,
                 threshold: torch.Tensor, n: int, sample_rate: int):
     """(written (B, cap) bool, victim (B, cap) int32) of the greedy scan over
     each row's ``count`` valid slots: ``pos`` (B, cap) int32 in [0, n],
-    ``amp`` (B, cap), ``threshold`` (B,) in seconds."""
+    ``amp`` (B, cap), ``threshold`` (B,) in seconds.  The kernel compares
+    integer distances with a per-row integer threshold, which equals the
+    plain version's division for positions in [0, n] (n < 2^24) and a
+    positive sample rate."""
     from ...models import corrections
 
     if amp.device.type == "cpu":
@@ -64,6 +67,8 @@ def rhythm_scan(pos: torch.Tensor, amp: torch.Tensor, count: torch.Tensor,
         raise ValueError(f"unsupported shape {(bsz, cap)}")
     if n >= 1 << 24:
         raise ValueError("positions must stay below 2^24 (exact in float32)")
+    if sample_rate <= 0:
+        raise ValueError(f"unsupported sample rate {sample_rate}")
     written = torch.empty((bsz, cap), dtype=torch.bool, device=device)
     victim = torch.empty((bsz, cap), dtype=torch.int32, device=device)
     lib = _library()

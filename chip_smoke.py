@@ -26,6 +26,9 @@ the seconds since start:
    ``corrections.rhythm_scan_plain`` on four one-minute recordings (rows cut
    to 0, 1, 2 and 4 peaks, a row at full capacity), float32 and float64,
    kick-start off and on, with and without the trace: every field equal;
+   the rhythm scan also on NaN, infinite, negative and boundary thresholds,
+   unsorted rows, one run over a whole row and rows of three of its tiles
+   (``rhythm_cases``);
    the blocked filter against ``ops/filter.lfilter_plain`` and each of its
    phase entry points (``filter_kernel.contributions`` / ``carry_scan`` /
    ``apply``) against its ``BlockFilter`` piece (short rows, a ragged last
@@ -37,7 +40,9 @@ the seconds since start:
    the rhythm scan once), warm wall time, a per-stage breakdown, and each
    of those kernels against its plain version on the main path's own
    inputs with its time, bound and plain-version time (the classifier scan
-   timed in both its passes);
+   timed in both its passes; the rhythm scan queued behind a spin kernel, so
+   that the card and not the host's issue times it, beside an empty launch
+   timed the same way);
 5. accuracy against the CPU reference's beats and BPM curves
    (``bench_cpu_baseline.json``): worst beat F1 >= 0.99, BPM MAE < 0.5;
 6. the card against the port on the CPU, recordings 0 and 1;
@@ -136,18 +141,34 @@ OPS_DESCENT_STEP, DESCENT_STEPS = 5, 32
 PEAK_ISSUE_OPS = 132 * 128 * 1.98e9
 OPS_DIGIT_ROUND, DIGIT_ROUNDS, OPS_KEY_ONCE = 3, 4, 1
 OPS_ANCHOR = DIGIT_ROUNDS * 256 * 2
-# The scan kernels' bound is the longest carry-dependent chain of one step
-# times the slots (csrc/classify_scan.cu and csrc/rhythm_scan.cu count their
-# chains): ALU operations at 4 cycles each and IEEE divisions by a carried
-# value at 40 (div.rn.f32's subroutine), at the card's maximum SM clock as
-# nvidia-smi reports it.  A division by a constant counts as the hoisted fast
-# path's 3 dependent operations.  The classifier's four chains from one
-# step's belief to the next one's, as (ALU operations, divisions); the
-# longest in cycles is the bound.
+# The classifier scan's bound is the longest carry-dependent chain of one
+# step times the slots (csrc/classify_scan.cu counts its chains): ALU
+# operations at 4 cycles each and IEEE divisions by a carried value at 40
+# (div.rn.f32's subroutine), at the card's maximum SM clock as nvidia-smi
+# reports it.  A division by a constant counts as the hoisted fast path's 3
+# dependent operations.  The classifier's four chains from one step's belief
+# to the next one's, as (ALU operations, divisions); the longest in cycles is
+# the bound.
 CLASSIFY_CHAINS = {"base confidence": (33, 0), "penalty": (37, 1),
                    "interval penalty": (22, 2), "lone check": (30, 2)}
-RHYTHM_CHAIN_ALU, RHYTHM_CHAIN_DIV = 6, 1
 ALU_CYCLES, DIV_CYCLES = 4, 40
+# The rhythm scan's chain at given inputs (csrc/rhythm_scan.cu): one IEEE
+# division places the row's integer threshold d* (the divisions at d* and
+# d* - 1 that pin it issue side by side), then the longest run of dependent
+# steps, each an integer subtract, the compare with d*, the decision and the
+# carry select.  Where a row's active positions are non-decreasing its runs
+# start at slot 0 and at every slot at least d* after the one before; a row
+# that is not sorted is one run of count steps.  Printed beside it, the chain
+# of a scan that divides on every step over the whole capacity (6 ALU
+# operations and a carried division a step; the kernel's earlier design).
+RHYTHM_STEP_ALU = 4
+RHYTHM_DIVIDING_STEP = (6, 1)
+RHYTHM_TILE = 2048      # csrc/rhythm_scan.cu's kTile: slots staged a pass
+RHYTHM_CASES = ("pipeline", "full_capacity", "conflicts", "few_slots", "edge_thresholds",
+                "at_f(d)", "below_f(d)", "above_f(d)", "unsorted", "one_run", "tiles")
+# device_ms queues the timed calls behind a spin of this many clock cycles
+# (~17 ms at 1.98 GHz), longer than the host takes to issue them.
+SPIN_CYCLES = 1 << 25
 # The block filter's carry scan: one step of a row's chain is a product's
 # multiply, its m - 1 adds and + C[k]: m + 1 dependent operations.
 FILTER_LONG_ROW = 362_401
@@ -371,6 +392,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the card with the host's issue time
+    hidden: the calls are queued behind a spin kernel
+    (``torch.cuda._sleep``) and timed by CUDA events around them, so a
+    call that the host issues slower than the card runs it is timed by the
+    card.  Fails if the spin ended before the last call was queued."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    hidden = not start.query()
+    torch.cuda.synchronize()
+    check(hidden, "the spin ended before the timed calls were queued")
+    return start.elapsed_time(end) / reps
+
+
 def once_ms(fn) -> tuple:
     """(result, milliseconds on the card) of one call, by CUDA events."""
     torch.cuda.synchronize()
@@ -478,15 +519,44 @@ def scan_bound(x, want_trace: bool, clock_hz: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rhythm_bound(pos, amp, clock_hz: float) -> tuple:
-    """Least time for the rhythm scan: positions and amplitudes read and
-    written / victim written once, or the capacity times one step's chain."""
+def rhythm_longest_run(pos, amp, count, threshold, sr: int) -> int:
+    """The longest run of dependent steps of the rhythm scan at these inputs
+    (``RHYTHM_STEP_ALU``'s comment): a slot at least d* after the one before
+    is one where the plain version's interval test fails, computed with its
+    division."""
+    cap = pos.shape[1]
+    p = pos.long()
+    active = torch.arange(1, cap, device=pos.device)[None, :] < count.long()[:, None]
+    d = p[:, 1:] - p[:, :-1]
+    sr_t = torch.tensor(sr, dtype=amp.dtype, device=amp.device)
+    starts = (active & ~(d.to(amp.dtype) / sr_t < threshold[:, None])).cpu().numpy()
+    sorted_rows = (~active | (d >= 0)).all(dim=1).cpu().numpy()
+    longest = 0
+    for b, cnt in enumerate(count.cpu().numpy()):
+        cnt = max(int(cnt), 0)
+        if not sorted_rows[b]:
+            longest = max(longest, cnt)
+        elif cnt > 0:
+            edges = np.concatenate([[0], np.flatnonzero(starts[b]) + 1, [cnt]])
+            longest = max(longest, int(np.diff(edges).max()))
+    return longest
+
+
+def rhythm_bound(pos, amp, count, threshold, sr: int, clock_hz: float) -> tuple:
+    """Least time for the rhythm scan at these inputs: positions and
+    amplitudes read and written / victim written once, or the dependent
+    chain (``RHYTHM_STEP_ALU``'s comment).  Returns (ms, 'bytes'|'operations',
+    longest run, the dividing scan's chain in ms)."""
     bsz, cap = pos.shape
     t_bytes = bsz * (cap * (4 + amp.element_size() + 1 + 4) + 4 + amp.element_size()) \
         / PEAK_BYTES_S * 1e3
-    t_ops = cap * (RHYTHM_CHAIN_ALU * ALU_CYCLES + RHYTHM_CHAIN_DIV * DIV_CYCLES) \
-        / clock_hz * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    run = rhythm_longest_run(pos, amp, count, threshold, sr)
+    t_ops = (DIV_CYCLES + run * RHYTHM_STEP_ALU * ALU_CYCLES) / clock_hz * 1e3
+    alu, div = RHYTHM_DIVIDING_STEP
+    dividing = cap * (alu * ALU_CYCLES + div * DIV_CYCLES) / clock_hz * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", run, dividing
+    return t_ops, "operations", run, dividing
 
 
 def trace_error(got, exp) -> float:
@@ -533,6 +603,98 @@ def scan_input_cases(x, n):
     return cases
 
 
+def rhythm_cases(pos, amp, count, threshold, n: int, sr: int) -> list:
+    """(name, pos, amp, count, threshold, n) cases of the rhythm scan, built
+    from one call's inputs on their device: the call as it is; cut to row
+    0's count (a row at full capacity); "conflicts", every third beat with a
+    neighbour 15 samples later, alternately louder (it replaces the beat)
+    and quieter (dropped); and from that: rows cut to 0, 1, 2 and 4 slots;
+    thresholds NaN, +inf, -1 and -inf; a threshold equal to f(d) = d / sr
+    in the working type for a distance d in the row, and its two neighbours;
+    unsorted rows (one reversed, pairs swapped, one at a negative
+    threshold) beside sorted ones; one run over the whole row (each slot 10
+    samples after the last, alternately louder and quieter); and rows of
+    more than two of the kernel's tiles: one run through all of them, a
+    tile that starts below the carried position, an unsorted tile, a count
+    that ends inside a tile."""
+    T = np.float32 if amp.dtype == torch.float32 else np.float64
+    P, A, C, TH = (t.cpu().numpy() for t in (pos, amp, count, threshold))
+    bsz, cap = P.shape
+    rows = np.arange(bsz)
+    cases = [("pipeline", P, A, C, TH, n)]
+    k = max(int(C[0]), 1)
+    cases.append(("full_capacity", P[:, :k], A[:, :k], np.minimum(C, k), TH, n))
+
+    def with_neighbours(p_row, a_row, c, width):
+        extra = np.arange(0, c, 3)
+        p = np.concatenate([p_row[:c], p_row[extra] + 15])
+        a = np.concatenate([a_row[:c], a_row[extra] * np.where(extra % 2 == 0, T(1.25),
+                                                               T(0.8))])
+        order = np.argsort(p, kind="stable")[:width]
+        return p[order], a[order]
+
+    P2, A2, C2 = np.full_like(P, n), np.zeros_like(A), np.zeros_like(C)
+    for b in rows:
+        p, a = with_neighbours(P[b], A[b], int(C[b]), cap)
+        P2[b, :len(p)], A2[b, :len(p)], C2[b] = p, a, len(p)
+    cases.append(("conflicts", P2, A2, C2, TH, n))
+    P3, C3 = P2.copy(), C2.copy()
+    for r, k in enumerate((0, 1, 2, 4)[:bsz]):
+        P3[r, k:] = n
+        C3[r] = k
+    cases.append(("few_slots", P3, A2, C3, TH, n))
+    edges = np.array([np.nan, np.inf, -1.0, -np.inf], T)
+    cases.append(("edge_thresholds", P2, A2, C2, edges[rows % 4], n))
+    d = np.where((rows % 2 == 0) | (C2 < 4), 15, P2[:, 3] - P2[:, 2])
+    f = d.astype(T) / T(sr)
+    for name, th in (("at_f(d)", f), ("below_f(d)", np.nextafter(f, T(-np.inf))),
+                     ("above_f(d)", np.nextafter(f, T(np.inf)))):
+        cases.append((name, P2, A2, C2, th, n))
+
+    def swap_pairs(p_row, a_row, first, stop, step):
+        for i in range(first, stop - 1, step):
+            p_row[[i, i + 1]], a_row[[i, i + 1]] = p_row[[i + 1, i]], a_row[[i + 1, i]]
+
+    P4, A4, TH4 = P2.copy(), A2.copy(), TH.copy()
+    c0 = int(C2[0])
+    P4[0, :c0], A4[0, :c0] = P2[0, :c0][::-1], A2[0, :c0][::-1]
+    for b in rows[1:3]:
+        swap_pairs(P4[b], A4[b], 1, int(C2[b]), 5)
+    if bsz > 2:
+        TH4[2] = T(-0.05)        # a slot 16 or more samples behind the last kept conflicts
+    cases.append(("unsorted", P4, A4, C2, TH4, n))
+
+    def alternating(m):
+        i = np.arange(m)
+        return np.where(i % 2 == 0, 1 + i * 1e-3, 0.5).astype(T)
+
+    P5, A5, C5, TH5 = P2.copy(), A2.copy(), C2.copy(), TH.copy()
+    P5[0], A5[0], C5[0], TH5[0] = 5 + 10 * np.arange(cap), alternating(cap), cap, T(0.28)
+    cases.append(("one_run", P5, A5, C5, TH5, max(n, 5 + 10 * cap)))
+
+    rng = np.random.RandomState(11)
+    tcap = 2 * RHYTHM_TILE + 613
+    beats = np.cumsum(rng.randint(180, 240, size=tcap))
+    amps = rng.uniform(0.5, 1.5, size=tcap).astype(T)
+    p1, a1 = with_neighbours(beats, amps, tcap, tcap)
+    P6 = np.stack([10 * np.arange(tcap), p1, p1, p1])
+    A6 = np.stack([alternating(tcap), a1, a1, a1])
+    swap_pairs(P6[3], A6[3], 3, 600, 7)          # row 3: an unsorted first tile
+    P6[2, RHYTHM_TILE:] -= 400                   # tile 1 starts below the carry
+    C6 = np.array([tcap, tcap, tcap, 3000])
+    TH6 = np.full(4, 0.28, T)
+    cases.append(("tiles", P6, A6, C6, TH6, int(P6.max()) + 1))
+
+    def on_device(p, a, c, th):
+        return (torch.as_tensor(np.ascontiguousarray(p), dtype=torch.int32, device=pos.device),
+                torch.as_tensor(np.ascontiguousarray(a, dtype=T), device=pos.device),
+                torch.as_tensor(np.asarray(c), dtype=torch.int32, device=pos.device),
+                torch.as_tensor(np.asarray(th, dtype=T), device=pos.device))
+
+    assert tuple(c[0] for c in cases) == RHYTHM_CASES
+    return [(name, *on_device(p, a, c, th), int(nn)) for name, p, a, c, th, nn in cases]
+
+
 def scan_config(dtype: str, kickstart: bool):
     """The card tests' small configuration (512 raw-peak slots)."""
     from bpm_analysis_tpu_torch.config import AnalyzerConfig, CompatConfig, RuntimeConfig
@@ -557,8 +719,9 @@ def scan_calls(batch, cfg) -> tuple:
 
 def check_scan_cases(dev) -> tuple:
     """Both scan kernels against their plain versions on the card, on 4
-    one-minute recordings plus the cut cases of ``scan_input_cases``, in
-    float32 and float64, kick-start off and on, with and without the trace.
+    one-minute recordings, in float32 and float64: the classifier on the cut
+    cases of ``scan_input_cases``, kick-start off and on, with and without
+    the trace; the rhythm scan on ``rhythm_cases`` of the path's call.
     Returns the worst (classify, rhythm) max abs error."""
     from bpm_analysis_tpu_torch import synth
     from bpm_analysis_tpu_torch.models import classifier, corrections
@@ -582,15 +745,21 @@ def check_scan_cases(dev) -> tuple:
                     check(err == 0, f"classify kernel differs from its plain version on "
                                     f"{name} ({dtype}, kickstart {kickstart}, trace "
                                     f"{want_trace}): max abs err {err}")
-            (pos, amp, count, threshold, n, sr), _ = r_calls[-1]
-            got = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n, sr)
-            exp = corrections.rhythm_scan_plain(pos, amp, count, threshold, sr)
-            torch.cuda.synchronize()
-            worst_r = max(worst_r, rhythm_error(got, exp))
-            check(worst_r == 0, f"rhythm kernel differs from its plain version ({dtype})")
-            log(f"  scan kernels vs plain [{dtype}, kickstart {kickstart}]: classify on "
+            log(f"  classify kernel vs plain [{dtype}, kickstart {kickstart}]: "
                 f"{[c[0] for c in scan_input_cases(x, n)]} x trace on/off, max abs err "
-                f"{worst_c}; rhythm written/victim equal")
+                f"{worst_c}")
+        (pos, amp, count, threshold, n, sr), _ = r_calls[-1]
+        cases = rhythm_cases(pos, amp, count, threshold, n, sr)
+        for name, *args in cases:
+            got = rhythm_kernel.rhythm_scan(*args, sr)
+            exp = corrections.rhythm_scan_plain(*args[:4], sr)
+            torch.cuda.synchronize()
+            err = rhythm_error(got, exp)
+            worst_r = max(worst_r, err)
+            check(err == 0, f"rhythm kernel differs from its plain version on {name} "
+                            f"({dtype}): max abs err {err}")
+        log(f"  rhythm kernel vs plain [{dtype}]: {[c[0] for c in cases]}, written and "
+            f"victim max abs err {worst_r}")
     return worst_c, worst_r
 
 
@@ -1716,11 +1885,16 @@ def main() -> int:
     exp, r_plain_ms = once_ms(lambda: corrections.rhythm_scan_plain(*a[:4], a[5]))
     rhythm_err = max(rhythm_err, rhythm_error(got, exp))
     check(rhythm_err == 0, "rhythm kernel differs from its plain version on the main path")
-    r_kernel_ms = cuda_ms(lambda: real_rhythm(*a, **k), 50)
-    r_bound_ms, r_bound_by = rhythm_bound(a[0], a[1], clock_hz)
+    r_kernel_ms = device_ms(lambda: real_rhythm(*a, **k), 50)
+    r_paced_ms = cuda_ms(lambda: real_rhythm(*a, **k), 50)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 50)     # an empty launch
+    r_bound_ms, r_bound_by, r_run, r_dividing_ms = rhythm_bound(*a[:4], a[5], clock_hz)
     log(f"rhythm kernel at the main path's shapes {tuple(a[0].shape)}: written and victim "
-        f"equal; {r_kernel_ms:.4f} ms (plain {r_plain_ms:.1f} ms, bound {r_bound_ms:.5f} ms by "
-        f"{r_bound_by}) on {card}")
+        f"equal; {r_kernel_ms:.4f} ms queued ({r_paced_ms:.4f} ms a call issued back to "
+        f"back; an empty launch queued {floor_ms:.4f} ms), bound {r_bound_ms:.6f} ms by "
+        f"{r_bound_by} ({100 * r_bound_ms / r_kernel_ms:.1f}% of it; longest run "
+        f"{r_run} steps; a division every step over the capacity: {r_dividing_ms:.5f} ms), "
+        f"plain {r_plain_ms:.1f} ms, on {card}")
     real_filter = filter_kernel.lfilter
     for label, (a, k) in zip(("forward", "backward"), f_captured):
         got = real_filter(*a, **k)

@@ -66,8 +66,12 @@ def test_classify_scan_kernel_matches_plain_version(dtype, kickstart):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", chip_smoke.RHYTHM_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_rhythm_scan_kernel_matches_plain_version(dtype):
+def test_rhythm_scan_kernel_matches_plain_version(dtype, case):
+    """``written`` and ``victim`` equal on ``chip_smoke.rhythm_cases`` of the
+    path's call: the call itself, edge thresholds, unsorted rows, one run
+    over a row, rows of several tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from bpm_analysis_tpu_torch.models import corrections
@@ -75,6 +79,8 @@ def test_rhythm_scan_kernel_matches_plain_version(dtype):
     _, (_, r_calls) = _scan_calls(dtype, False)
     assert len(r_calls) == 1
     (pos, amp, count, threshold, n, sr), _ = r_calls[0]
+    cases = {c[0]: c[1:] for c in chip_smoke.rhythm_cases(pos, amp, count, threshold, n, sr)}
+    pos, amp, count, threshold, n = cases[case]
     before = rhythm_kernel.launches
     written, victim = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n, sr)
     torch.cuda.synchronize()
@@ -107,6 +113,9 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take():
                  (pos, amp, count, threshold.cpu())):
         with pytest.raises(ValueError):
             rhythm_kernel.rhythm_scan(*args, n, sr)
+    for n_bad, sr_bad in ((1 << 24, sr), (n, 0), (n, -sr)):      # d* needs both
+        with pytest.raises(ValueError):
+            rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n_bad, sr_bad)
     assert classify_kernel.launches == c_before and rhythm_kernel.launches == r_before
 
 

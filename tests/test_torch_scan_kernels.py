@@ -22,7 +22,13 @@ holds the kernel's fast path for them against IEEE division
   with and without the trace, kick-start on and off, on rows with 0, 1, 2
   and 4 peaks, a row at full capacity and NaN recovery bounds.
 * ``csrc/rhythm_scan.cu`` against ``models/corrections.rhythm_scan_plain``:
-  ``written`` and ``victim``.
+  ``written`` and ``victim``, float32 and float64, on
+  ``chip_smoke.rhythm_cases`` (the card's cases).  The emulation follows
+  the kernel's block: the integer threshold d* by warp 0's rounds of 32
+  candidates (held against a brute-force scan of every distance), tiles of
+  2048 slots with the sorted vote and the carry handed from tile to tile,
+  runs owned by the 128 threads' chunks with each slot written by exactly
+  one thread, and an unsorted tile's single chain.
 
 The inputs come from the port's own pipeline on 60 s synthetic recordings at
 302 Hz with 512 raw-peak slots (as tests/test_torch_classifier.py).
@@ -33,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from bpm_analysis_tpu_torch import synth
 from bpm_analysis_tpu_torch.config import DEFAULT_CONFIG
 from bpm_analysis_tpu_torch.models import classifier as tcls
@@ -73,6 +80,7 @@ def _config(dtype: str, kickstart: bool = False):
 
 
 _CACHE = {}
+_CORRECTION = {}
 
 
 def _captured(dtype: str):
@@ -123,7 +131,15 @@ def _captured(dtype: str):
     finally:
         classify_kernel.classify_scan, rhythm_kernel.rhythm_scan = real_scan, real_rhythm
     _CACHE[dtype] = calls["scan"], calls["rhythm"], n
+    _CORRECTION[dtype] = cfg, res.s1_positions, res.s1_count, env
     return _CACHE[dtype]
+
+
+def correction_inputs(dtype: str):
+    """(config, S1 positions, S1 count, envelope) that stage 4 took in
+    ``_captured``'s run."""
+    _captured(dtype)
+    return _CORRECTION[dtype]
 
 
 def _full_row(x: tcls.ScanInputs, row: int) -> tcls.ScanInputs:
@@ -462,62 +478,201 @@ def test_classify_wrapper_takes_the_plain_version_on_the_cpu():
 
 
 # --------------------------------------------------------------------------
-# The rhythm kernel's thread.
+# The rhythm kernel's block.
+
+THREADS, TILE, SPAN = 128, chip_smoke.RHYTHM_TILE, (1 << 24) - 1   # kThreads, kTile, kSpan
+
+
+def conflict_limit(thr, sr, T):
+    """The kernel's d* (``conflict_limit``): warp 0's rounds, in each of
+    which lane j tests the last value of the j-th of 32 parts of [lo, hi)."""
+    lo, hi = -SPAN, SPAN + 1
+    while lo < hi:
+        part = (hi - lo + 31) // 32
+        last = [lo + (j + 1) * part - 1 for j in range(32)]
+        votes = [e >= hi or not (T(e) / sr < thr) for e in last]
+        if not any(votes):
+            return hi
+        j = votes.index(True)
+        lo, hi = lo + j * part, min(last[j], hi)
+    return lo
+
 
 def emulate_rhythm(pos, amp, count, threshold):
+    """(written, victim, paths) of the kernel's blocks, one row at a time: per
+    tile of TILE slots the vote, then each thread's chunk in turn (its
+    inactive slots, then its chain: thread 0 from the carry, another from
+    the first run start in its chunk), each slot written by exactly one
+    thread.  ``paths`` counts sorted and unsorted tiles, tiles entered with
+    a carry, tiles refused for the carried position alone, chains that ran
+    past their chunk, and the longest chain."""
     T = amp.dtype.type
     sr = T(SR)
     bsz, cap = pos.shape
     written = np.zeros((bsz, cap), bool)
     victim = np.zeros((bsz, cap), np.int32)
-    with np.errstate(all="ignore"):
-        for b in range(bsz):
-            last_slot, last_pos, last_amp = 0, int(pos[b, 0]), amp[b, 0]
-            for i in range(cap):
-                p, a = int(pos[b, i]), amp[b, i]
-                interval = T(p - last_pos) / sr
-                act = i < count[b] and i > 0
-                conflict = act and interval < threshold[b]
-                replace = conflict and a > last_amp
-                w = act and not (conflict and not replace)
-                victim[b, i] = last_slot if replace else cap
-                written[b, i] = w
-                if w:
-                    last_slot, last_pos, last_amp = i, p, a
-    return written, victim
+    owner = np.full((bsz, cap), -1)
+    paths = dict(sorted=0, unsorted=0, carried=0, carry_vote=0, past_chunk=0, longest=0)
+    for b in range(bsz):
+        dstar = conflict_limit(threshold[b], sr, T)
+        cnt = int(count[b])
+        carry = None
+        for t0 in range(0, cap, TILE):
+            nt = min(TILE, cap - t0)
+            p = [int(v) for v in pos[b, t0:t0 + nt]]
+            a = amp[b, t0:t0 + nt]
+            act_end = min(max(cnt - t0, 0), nt)
+            if t0 == 0 and act_end > 0:
+                carry = (0, p[0], a[0])
+            pairs_ok = all(p[i] >= p[i - 1] for i in range(1, act_end))
+            carry_ok = act_end == 0 or carry[1] <= p[0]
+            is_sorted = pairs_ok and carry_ok
+            paths["sorted" if is_sorted else "unsorted"] += 1
+            paths["carry_vote"] += pairs_ok and not carry_ok
+            paths["carried"] += t0 > 0 and act_end > 0
+
+            def put(i, w, v, k):
+                assert owner[b, t0 + i] == -1, (b, t0 + i)
+                owner[b, t0 + i] = k
+                written[b, t0 + i], victim[b, t0 + i] = w, v
+
+            per = -(-nt // THREADS)
+            carry_out = None
+            for k in range(THREADS):
+                lo, hi = min(k * per, nt), min(k * per + per, nt)
+                for i in range(max(lo, act_end), hi):
+                    put(i, False, cap, k)
+                stop = hi
+                if k == 0:
+                    first, c = 0, carry
+                    if not is_sorted:
+                        stop = nt
+                elif is_sorted:
+                    first = next((i for i in range(lo, min(hi, act_end))
+                                  if p[i] - p[i - 1] >= dstar), None)
+                    if first is None:
+                        continue
+                    c = (t0 + first - 1, p[first - 1], a[first - 1])
+                else:
+                    continue
+                i = first
+                while i < act_end:
+                    if i >= stop and p[i] - p[i - 1] >= dstar:
+                        break
+                    last_slot, last_pos, last_amp = c
+                    act = t0 + i > 0
+                    conflict = act and p[i] - last_pos < dstar
+                    replace = conflict and a[i] > last_amp
+                    w = act and not (conflict and not replace)
+                    put(i, w, last_slot if replace else cap, k)
+                    if w:
+                        c = (t0 + i, p[i], a[i])
+                    i += 1
+                paths["past_chunk"] += i > hi
+                paths["longest"] = max(paths["longest"], i - first)
+                if i == nt:
+                    assert carry_out is None
+                    carry_out = c
+            carry = carry_out
+    assert (owner >= 0).all()
+    return written, victim, paths
+
+
+_RHYTHM = {}
+FIRST_CASES, EDGE_CASES = chip_smoke.RHYTHM_CASES[:3], chip_smoke.RHYTHM_CASES[3:]
 
 
 def _rhythm_cases(dtype):
-    _, (pos, amp, count, threshold), n = _captured(dtype)
-    yield "pipeline", pos, amp, count, threshold
-    k = int(count[0])
-    yield "full_capacity", pos[:, :k].contiguous(), amp[:, :k].contiguous(), \
-        torch.clamp(count, max=k), threshold
-    # Conflicts: every third beat of each row gets a neighbour 15 samples
-    # later, alternately louder (it replaces the beat) and quieter (dropped).
-    cap = pos.shape[1]
-    pos2, amp2 = torch.full_like(pos, n), torch.zeros_like(amp)
-    count2 = torch.zeros_like(count)
-    for b in range(pos.shape[0]):
-        c = int(count[b])
-        extra = torch.arange(0, c, 3)
-        p = torch.cat([pos[b, :c], pos[b, extra] + 15])
-        scale = torch.where(extra % 2 == 0, 1.25, 0.8).to(amp.dtype)
-        a = torch.cat([amp[b, :c], amp[b, extra] * scale])
-        order = torch.argsort(p, stable=True)[:cap]
-        pos2[b, :len(order)], amp2[b, :len(order)] = p[order], a[order]
-        count2[b] = len(order)
-    yield "conflicts", pos2, amp2, count2, threshold
+    """chip_smoke.rhythm_cases of the captured call, by name."""
+    if dtype not in _RHYTHM:
+        _, (pos, amp, count, threshold), n = _captured(dtype)
+        cases = chip_smoke.rhythm_cases(pos, amp, count, threshold, n, SR)
+        _RHYTHM[dtype] = {c[0]: c[1:5] for c in cases}
+    return _RHYTHM[dtype]
+
+
+def _emulate_and_compare(name, pos, amp, count, threshold):
+    w_exp, v_exp = tcorr.rhythm_scan_plain(pos, amp, count, threshold, SR)
+    w, v, paths = emulate_rhythm(pos.numpy(), amp.numpy(), count.numpy(), threshold.numpy())
+    np.testing.assert_array_equal(w, w_exp.numpy(), err_msg=name)
+    np.testing.assert_array_equal(v, v_exp.numpy(), err_msg=name)
+    return v, paths
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_rhythm_kernel_emulation_equals_plain_loop(dtype):
     replaced = 0
-    for name, pos, amp, count, threshold in _rhythm_cases(dtype):
-        w_exp, v_exp = tcorr.rhythm_scan_plain(pos, amp, count, threshold, SR)
-        w, v = emulate_rhythm(pos.numpy(), amp.numpy(), count.numpy(), threshold.numpy())
-        np.testing.assert_array_equal(w, w_exp.numpy(), err_msg=name)
-        np.testing.assert_array_equal(v, v_exp.numpy(), err_msg=name)
+    cases = _rhythm_cases(dtype)
+    for name in FIRST_CASES:
+        pos, amp, count, threshold = cases[name]
+        v, paths = _emulate_and_compare(name, pos, amp, count, threshold)
+        assert paths["unsorted"] == 0, name
         replaced += int((v < pos.shape[1]).sum())
     counts = _captured(dtype)[1][2].tolist()
     assert min(counts) < 5 and replaced > 10
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rhythm_kernel_emulation_on_edge_cases(dtype, case):
+    """Bit for bit against the plain loop, and each case reaches what it is
+    for: the block's paths, the tile hand-off, d* at the edges."""
+    pos, amp, count, threshold = _rhythm_cases(dtype)[case]
+    v, paths = _emulate_and_compare(case, pos, amp, count, threshold)
+    T = np.dtype(dtype).type
+    cap = pos.shape[1]
+    p = pos.numpy().astype(np.int64)
+    if case == "few_slots":
+        assert count[:4].tolist() == [0, 1, 2, 4] and (v[3] < cap).any()
+    elif case == "edge_thresholds":
+        assert [conflict_limit(t, T(SR), T) for t in threshold[:4].numpy()] == \
+            [-SPAN, SPAN + 1, -302, -SPAN]
+        assert (v[0] == cap).all() and (v[1] < cap).any()
+    elif case.endswith("f(d)"):
+        d = [15 if r % 2 == 0 or count[r] < 4 else int(p[r, 3] - p[r, 2])
+             for r in range(pos.shape[0])]
+        got = [conflict_limit(t, T(SR), T) for t in threshold.numpy()]
+        want = {"at_f(d)": [[x] for x in d], "above_f(d)": [[x + 1] for x in d],
+                "below_f(d)": [[x - 1, x] for x in d]}[case]
+        assert all(g in w for g, w in zip(got, want)), (got, d)
+    elif case == "unsorted":
+        assert paths["unsorted"] >= 3 and paths["sorted"] >= 1
+        assert (v[2] < cap).any()
+    elif case == "one_run":
+        assert int(count[0]) == cap and paths["longest"] == cap
+        assert paths["past_chunk"] >= 1 and (v[0] < cap).sum() >= cap // 2 - 1
+    elif case == "tiles":
+        assert cap > 2 * TILE and int(count[3]) < 2 * TILE
+        assert paths["carried"] >= 6 and paths["carry_vote"] >= 1
+        assert paths["unsorted"] >= 2 and paths["longest"] == TILE
+        assert (v[0] < cap).sum() >= cap // 2 - 1 and (v[1] < cap).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_conflict_limit_equals_brute_force(dtype):
+    """d < d*  <=>  f(d) < thr for every d in [-n, n] (f(d) = d / sr in the
+    working type), at sr = 302 and n = 196,608, for thresholds at the edges
+    (NaN, +-inf, +-0, negative, tiny, huge) and at f(d), one step below and
+    one above, for distances across the range."""
+    T = np.dtype(dtype).type
+    n, sr = 196_608, T(302)
+    d = np.arange(-n, n + 1)
+    f = d.astype(T) / sr
+    assert (np.diff(f) >= 0).all()
+    thresholds = [T(v) for v in (np.nan, np.inf, -np.inf, 0.0, -0.0, -1.0, 0.28, 1e-30,
+                                 -1e-30, 1e30)]
+    for x in (-n, -302, -7, -1, 1, 15, 85, 302, 4097, 65_537, n):
+        fx = f[x + n]
+        thresholds += [fx, np.nextafter(fx, T(-np.inf)), np.nextafter(fx, T(np.inf))]
+    for thr in thresholds:
+        np.testing.assert_array_equal(d < conflict_limit(thr, sr, T), f < thr,
+                                      err_msg=repr(thr))
+
+
+def test_rhythm_wrapper_takes_the_plain_version_on_the_cpu():
+    pos, amp, count, threshold = _rhythm_cases("float32")["conflicts"]
+    before = rhythm_kernel.launches
+    written, victim = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, 18120, SR)
+    w_exp, v_exp = tcorr.rhythm_scan_plain(pos, amp, count, threshold, SR)
+    assert rhythm_kernel.launches == before
+    assert torch.equal(written, w_exp) and torch.equal(victim, v_exp)
