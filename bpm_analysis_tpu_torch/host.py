@@ -36,6 +36,7 @@ from .models import envelope as envm
 from .models import pipeline
 from .reports import csvout, debug_log, plot, settings, summary
 from .reports import trace as trace_mod
+from .utils.profiling import span
 
 SUPPORTED_EXTENSIONS = (".wav", ".mp3", ".m4a", ".flac", ".ogg", ".mp4", ".mkv", ".mov")
 
@@ -71,7 +72,8 @@ def to_host(tree):
     stream, and the stream is synchronised once.  The renderers index the
     result per event; per-field or per-element ``.cpu()`` calls would pay
     one synchronisation each, thousands per file.  CPU tensors are viewed,
-    not copied."""
+    not copied.  The whole is the span ``bpm.to_host``, its wait
+    ``bpm.sync.to_host``."""
     pending = []
 
     def start(x):
@@ -84,10 +86,12 @@ def to_host(tree):
         pending.append(buf)
         return buf
 
-    staged = tree_map(start, tree)
-    if pending:
-        torch.cuda.current_stream().synchronize()
-    return tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor) else x, staged)
+    with span("bpm.to_host"):
+        staged = tree_map(start, tree)
+        if pending:
+            with span("bpm.sync.to_host"):
+                torch.cuda.current_stream().synchronize()
+        return tree_map(lambda x: x.numpy() if isinstance(x, torch.Tensor) else x, staged)
 
 
 def compute_dtype(cfg: AnalyzerConfig) -> torch.dtype:
@@ -233,21 +237,26 @@ def render_artifacts(result, cfg: AnalyzerConfig, env_np: np.ndarray,
     log MD, HTML plot (bpm_analysis.py:1756-1765).  Returns the result, or
     None when fewer than 2 final beats (the reference's no-report outcome)."""
     base = os.path.basename(os.path.splitext(original_file_path)[0])
-    settings.save(output_directory, base, start_bpm_hint)
+    with span("bpm.render.settings"):
+        settings.save(output_directory, base, start_bpm_hint)
     check_overflow(result, original_file_path)
     if not bool(result.ok):
         logging.warning("Not enough S1 peaks detected to generate full report.")
         return None
-    times, bpm = csvout.bpm_rows(result)
-    csvout.write_bpm_csv(os.path.join(output_directory, f"{base}_bpm_plot.csv"),
-                         times, bpm)
-    summary.save(result, original_file_path, output_directory)
-    # Read by both the debug log and the plot tooltips: build it once.
-    debug = trace_mod.debug_strings(result, cfg)
-    debug_log.save(result, cfg, env_np, new_rate, original_file_path,
-                   output_directory, debug=debug)
-    plot.save(result, cfg, env_np, new_rate, original_file_path, output_directory,
-              debug=debug)
+    with span("bpm.render.csv"):
+        times, bpm = csvout.bpm_rows(result)
+        csvout.write_bpm_csv(os.path.join(output_directory, f"{base}_bpm_plot.csv"),
+                             times, bpm)
+    with span("bpm.render.summary"):
+        summary.save(result, original_file_path, output_directory)
+    with span("bpm.render.debug_log"):
+        # Read by both the debug log and the plot tooltips: build it once.
+        debug = trace_mod.debug_strings(result, cfg)
+        debug_log.save(result, cfg, env_np, new_rate, original_file_path,
+                       output_directory, debug=debug)
+    with span("bpm.render.plot"):
+        plot.save(result, cfg, env_np, new_rate, original_file_path, output_directory,
+                  debug=debug)
     return result
 
 
@@ -275,44 +284,50 @@ def analyze_wav_file(
     logging.info(f"--- Processing file: {os.path.basename(original_file_path)} ---")
     os.makedirs(output_directory, exist_ok=True)
 
-    sample_rate, data = wav.read(wav_file_path)
-    mono = wav.to_mono(data).astype(np.float32 if cfg.runtime.dtype == "float32"
-                                    else np.float64)
-    n = int(mono.shape[0])
-    if pre_filtered:
-        # Input is already the band-passed (decimated) signal — e.g. a
-        # ``*_filtered_debug.wav`` artifact; skip decimation/filtering the
-        # way the reference's labeler does (heartbeat_labeler.py:62-67).
-        new_rate = sample_rate
-    else:
-        factor = envm.safe_downsample_factor(sample_rate, cfg)
-        new_rate = post_rate(sample_rate, cfg)
-        # The masked filtfilt clamps (garbage) instead of erroring when
-        # n_valid <= padlen, so reject too-short recordings here.
-        padlen = 3 * (2 * cfg.preprocess.bandpass_order + 1)
-        n_dec = -(-n // factor) if factor > 1 else n
-        if n_dec <= padlen:
-            raise ValueError(
-                f"decimated length {n_dec} must exceed filter padlen "
-                f"{padlen} (recording too short at rate {sample_rate})")
+    with span("bpm.read"):
+        sample_rate, data = wav.read(wav_file_path)
+        mono = wav.to_mono(data).astype(np.float32 if cfg.runtime.dtype == "float32"
+                                        else np.float64)
+        n = int(mono.shape[0])
+        if pre_filtered:
+            # Input is already the band-passed (decimated) signal — e.g. a
+            # ``*_filtered_debug.wav`` artifact; skip decimation/filtering the
+            # way the reference's labeler does (heartbeat_labeler.py:62-67).
+            new_rate = sample_rate
+        else:
+            factor = envm.safe_downsample_factor(sample_rate, cfg)
+            new_rate = post_rate(sample_rate, cfg)
+            # The masked filtfilt clamps (garbage) instead of erroring when
+            # n_valid <= padlen, so reject too-short recordings here.
+            padlen = 3 * (2 * cfg.preprocess.bandpass_order + 1)
+            n_dec = -(-n // factor) if factor > 1 else n
+            if n_dec <= padlen:
+                raise ValueError(
+                    f"decimated length {n_dec} must exceed filter padlen "
+                    f"{padlen} (recording too short at rate {sample_rate})")
 
-    bucket = _length_bucket(n)
-    if bucket > n:
-        mono = np.pad(mono, (0, bucket - n))
+        bucket = _length_bucket(n)
+        if bucket > n:
+            mono = np.pad(mono, (0, bucket - n))
     hint = float(start_bpm_hint) if start_bpm_hint else float("nan")
     dtype = compute_dtype(cfg)
-    env, filtered, nv_dec, result = analyze_padded(
-        torch.from_numpy(mono)[None].to(dev), torch.tensor([hint], dtype=dtype, device=dev),
-        torch.tensor([n], dtype=torch.int32, device=dev), sample_rate, cfg, pre_filtered)
+    with span("bpm.to_device"):
+        audio = torch.from_numpy(mono)[None].to(dev)
+        hints = torch.tensor([hint], dtype=dtype, device=dev)
+        n_valid = torch.tensor([n], dtype=torch.int32, device=dev)
+    env, filtered, nv_dec, result = analyze_padded(audio, hints, n_valid, sample_rate, cfg,
+                                                   pre_filtered)
     env, filtered, nv_dec, result = tree_row(to_host((env, filtered, nv_dec, result)), 0)
     nv = int(nv_dec)
-    if not pre_filtered and cfg.preprocess.save_filtered_wav:
-        save_filtered_wav(
-            filtered[:nv], new_rate, original_file_path, output_directory,
-            beside_wav_path=(wav_file_path if cfg.compat.filtered_wav_beside_input
-                             else None))
-    out = render_artifacts(result, cfg, env[:nv], new_rate, original_file_path,
-                           output_directory, start_bpm_hint)
+    with span("bpm.render"):
+        if not pre_filtered and cfg.preprocess.save_filtered_wav:
+            with span("bpm.render.filtered_wav"):
+                save_filtered_wav(
+                    filtered[:nv], new_rate, original_file_path, output_directory,
+                    beside_wav_path=(wav_file_path if cfg.compat.filtered_wav_beside_input
+                                     else None))
+        out = render_artifacts(result, cfg, env[:nv], new_rate, original_file_path,
+                               output_directory, start_bpm_hint)
     logging.info(f"--- Analysis finished in {time.time() - start:.2f} seconds. ---")
     return out
 
@@ -326,14 +341,15 @@ def analyze_any_file(
     device=None,
 ):
     """Convert-or-copy then analyze — the per-file body of the reference's
-    batch worker (gui.py:202-245)."""
-    os.makedirs(output_directory, exist_ok=True)
-    base, ext = os.path.splitext(os.path.basename(file_path))
-    target = os.path.join(output_directory, f"{base}.wav")
-    if ext.lower() == ".wav":
-        if os.path.abspath(target) != os.path.abspath(file_path):
-            shutil.copyfile(file_path, target)
-    elif not convert_to_wav(file_path, target):
-        raise RuntimeError(f"conversion failed for {file_path}")
-    return analyze_wav_file(target, cfg, start_bpm_hint, file_path, output_directory,
-                            pre_filtered=pre_filtered, device=device)
+    batch worker (gui.py:202-245).  One call is the span ``bpm.request``."""
+    with span("bpm.request"):
+        os.makedirs(output_directory, exist_ok=True)
+        base, ext = os.path.splitext(os.path.basename(file_path))
+        target = os.path.join(output_directory, f"{base}.wav")
+        if ext.lower() == ".wav":
+            if os.path.abspath(target) != os.path.abspath(file_path):
+                shutil.copyfile(file_path, target)
+        elif not convert_to_wav(file_path, target):
+            raise RuntimeError(f"conversion failed for {file_path}")
+        return analyze_wav_file(target, cfg, start_bpm_hint, file_path, output_directory,
+                                pre_filtered=pre_filtered, device=device)

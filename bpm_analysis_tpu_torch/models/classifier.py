@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import AnalyzerConfig
+from ..device import upload
 from ..ops import rolling
 from ..ops.cuda import classify_kernel
 from ..ops.indexing import arange, take
@@ -431,7 +432,7 @@ def classify(
     dev = envelope.device
     bsz, n = envelope.shape
     cap = positions.shape[1]
-    sr = torch.tensor(sample_rate, dtype=dtype, device=dev)
+    sr = upload("sample_rate", sample_rate, dtype, dev)
     nan = float("nan")
     count = count.long()
 

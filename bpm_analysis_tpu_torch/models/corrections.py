@@ -23,11 +23,13 @@ from typing import NamedTuple
 import torch
 
 from ..config import AnalyzerConfig
+from ..device import upload
 from ..ops import series
 from ..ops.cuda import rhythm_kernel
 from ..ops.find_peaks import compact_slots
 from ..ops.indexing import arange, scatter_drop, take
 from .. import types
+from ..utils.profiling import host_read
 
 
 class CorrectionResult(NamedTuple):
@@ -74,7 +76,7 @@ def rhythm_correction(positions: torch.Tensor, count: torch.Tensor,
     bsz, cap = positions.shape
     n = envelope.shape[1]
     dtype = envelope.dtype
-    sr = torch.tensor(sample_rate, dtype=dtype, device=envelope.device)
+    sr = upload("sample_rate", sample_rate, dtype, envelope.device)
     count = count.long()
     slot = arange(cap, positions)[None, :]
     valid = slot < count[:, None]
@@ -143,7 +145,7 @@ def _fix_iteration(s1_pos, s1_count, cand, rcap: int, classes,
     n = envelope.shape[1]
     dtype = envelope.dtype
     dev = envelope.device
-    sr = torch.tensor(sample_rate, dtype=dtype, device=dev)
+    sr = upload("sample_rate", sample_rate, dtype, dev)
     margin = c.margin_beats
     s1_count = s1_count.long()
     cnt = s1_count[:, None]
@@ -294,7 +296,7 @@ def refine_and_correct(s1_pos, s1_count, raw_pos, raw_count, classes,
     still_active = torch.ones(bsz, dtype=torch.bool, device=s1_pos.device)
     ovf = torch.zeros_like(still_active)
     for _ in range(cfg.correction.max_iterations):
-        if not bool(still_active.any()):      # one host read per iteration
+        if not host_read("fix", still_active.any()):      # one host read per iteration
             break
         new_pos, new_count, new_classes, corrections, new_ovf = _fix_iteration(
             pos, count, cand, rcap, classes, envelope, floor, sample_rate, cfg)

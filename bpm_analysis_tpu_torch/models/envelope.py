@@ -17,6 +17,7 @@ from ..device import as_tensor, resolve_device
 from ..ops import rolling
 from ..ops.filter import bandpass_filtfilt, fir_decimate
 from ..ops.indexing import arange, take
+from ..utils.profiling import span
 
 
 def safe_downsample_factor(sample_rate: int, cfg: AnalyzerConfig) -> int:
@@ -62,39 +63,40 @@ def preprocess(audio, sample_rate: int, cfg: AnalyzerConfig, n_valid=None,
     ``(envelope, filtered_signal, new_sample_rate)``, plus the decimated
     valid lengths as a fourth element when ``n_valid`` (B,) marks each
     row's valid prefix of a zero-padded batch."""
-    dev = resolve_device(device)
-    audio = as_tensor(audio, dev)
-    if not audio.is_floating_point():
-        raise TypeError(f"audio must be a floating tensor, got {audio.dtype}")
-    factor = safe_downsample_factor(sample_rate, cfg)
-    low = cfg.preprocess.bandpass_low_hz
-    high = cfg.preprocess.bandpass_high_hz
-    order = cfg.preprocess.bandpass_order
-    masked = n_valid is not None
-    if masked:
-        n_valid = as_tensor(n_valid, dev).long()
-        keep = arange(audio.shape[1], audio)[None, :] < n_valid[:, None]
-        audio = torch.where(keep, audio, torch.zeros_like(audio))
+    with span("bpm.preprocess"):
+        dev = resolve_device(device)
+        audio = as_tensor(audio, dev)
+        if not audio.is_floating_point():
+            raise TypeError(f"audio must be a floating tensor, got {audio.dtype}")
+        factor = safe_downsample_factor(sample_rate, cfg)
+        low = cfg.preprocess.bandpass_low_hz
+        high = cfg.preprocess.bandpass_high_hz
+        order = cfg.preprocess.bandpass_order
+        masked = n_valid is not None
+        if masked:
+            n_valid = as_tensor(n_valid, dev).long()
+            keep = arange(audio.shape[1], audio)[None, :] < n_valid[:, None]
+            audio = torch.where(keep, audio, torch.zeros_like(audio))
 
-    new_rate = sample_rate // factor if factor > 1 else sample_rate
-    if cfg.compat.antialias_decimation:
-        # North-star path: FIR anti-alias decimation, then the IIR band-pass
-        # at the decimated rate, where its poles are well-conditioned.
-        decimated = fir_decimate(audio, factor)
-    else:
-        # Compat path: stride-decimate first (aliases above the new Nyquist
-        # fold in — reproducing bpm_analysis.py:1031-1045 exactly).
-        decimated = audio[:, ::factor] if factor > 1 else audio
-        if high >= 0.5 * new_rate:
-            raise ValueError(
-                f"Cannot create a {high:g}Hz filter: effective rate {new_rate}Hz too low")
+        new_rate = sample_rate // factor if factor > 1 else sample_rate
+        if cfg.compat.antialias_decimation:
+            # North-star path: FIR anti-alias decimation, then the IIR band-pass
+            # at the decimated rate, where its poles are well-conditioned.
+            decimated = fir_decimate(audio, factor)
+        else:
+            # Compat path: stride-decimate first (aliases above the new Nyquist
+            # fold in — reproducing bpm_analysis.py:1031-1045 exactly).
+            decimated = audio[:, ::factor] if factor > 1 else audio
+            if high >= 0.5 * new_rate:
+                raise ValueError(
+                    f"Cannot create a {high:g}Hz filter: effective rate {new_rate}Hz too low")
 
-    if not masked:
-        filtered = bandpass_filtfilt(decimated, new_rate, low, high, order)
-        return envelope_from_filtered(filtered, new_rate), filtered, new_rate
+        if not masked:
+            filtered = bandpass_filtfilt(decimated, new_rate, low, high, order)
+            return envelope_from_filtered(filtered, new_rate), filtered, new_rate
 
-    nv_dec = (-(-n_valid // factor) if factor > 1 else n_valid).to(torch.int32)
-    filtered = bandpass_filtfilt(decimated, new_rate, low, high, order,
-                                 n_valid=nv_dec)
-    env = envelope_from_filtered(filtered, new_rate, n_valid=nv_dec)
-    return env, filtered, new_rate, nv_dec
+        nv_dec = (-(-n_valid // factor) if factor > 1 else n_valid).to(torch.int32)
+        filtered = bandpass_filtfilt(decimated, new_rate, low, high, order,
+                                     n_valid=nv_dec)
+        env = envelope_from_filtered(filtered, new_rate, n_valid=nv_dec)
+        return env, filtered, new_rate, nv_dec

@@ -25,6 +25,7 @@ from ..ops import find_peaks as fp
 from ..ops import quantile as quantile_ops
 from ..ops import series
 from ..ops.indexing import arange, take
+from ..utils.profiling import span
 from . import analytics, classifier, corrections, noise_floor
 from . import envelope as envm
 
@@ -136,51 +137,61 @@ def analyze_envelope(envelope: torch.Tensor, sample_rate: int, cfg: AnalyzerConf
     # shared by the trough finder (on -env: roles swap and comparisons
     # negate) and the raw-peak finder: the extrema decomposition (default),
     # or the dense sparse-table pair (prominence_backend="dense").
-    _, env_m = envm.edge_held(envelope, n_valid)
-    if cfg.runtime.prominence_backend == "dense":
-        env_tables = (fp._sparse_table(env_m, torch.maximum),
-                      fp._sparse_table(env_m, torch.minimum))
-        extrema = None
-    else:
-        env_tables = None
-        extrema = fp.build_extrema(
-            env_m, cfg.runtime.extrema_capacity
-            or cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks)
+    with span("bpm.extrema"):
+        _, env_m = envm.edge_held(envelope, n_valid)
+        if cfg.runtime.prominence_backend == "dense":
+            env_tables = (fp._sparse_table(env_m, torch.maximum),
+                          fp._sparse_table(env_m, torch.minimum))
+            extrema = None
+        else:
+            env_tables = None
+            extrema = fp.build_extrema(
+                env_m, cfg.runtime.extrema_capacity
+                or cfg.runtime.find_peaks_work_factor * cfg.runtime.max_raw_peaks)
 
-    nf = noise_floor.dynamic_noise_floor(envelope, sample_rate, cfg,
-                                         n_valid=n_valid, env_tables=env_tables,
-                                         extrema=extrema)
-    peaks = raw_peaks(envelope, nf.floor, sample_rate, cfg, n_valid=n_valid,
-                      env_tables=env_tables, extrema=extrema)
+    with span("bpm.noise_floor"):
+        nf = noise_floor.dynamic_noise_floor(envelope, sample_rate, cfg,
+                                             n_valid=n_valid, env_tables=env_tables,
+                                             extrema=extrema)
+    with span("bpm.raw_peaks"):
+        peaks = raw_peaks(envelope, nf.floor, sample_rate, cfg, n_valid=n_valid,
+                          env_tables=env_tables, extrema=extrema)
 
-    start_bpm, peak_time, recovery_end = preliminary_pass(
-        envelope, nf.floor, peaks, sample_rate, start_bpm_hints, cfg)
+    with span("bpm.classify_preliminary"):
+        start_bpm, peak_time, recovery_end = preliminary_pass(
+            envelope, nf.floor, peaks, sample_rate, start_bpm_hints, cfg)
 
-    res = classifier.classify(
-        envelope, nf.floor, peaks.positions, peaks.count, sample_rate,
-        start_bpm, cfg, peak_bpm_time_sec=peak_time,
-        recovery_end_time_sec=recovery_end)
+    with span("bpm.classify_main"):
+        res = classifier.classify(
+            envelope, nf.floor, peaks.positions, peaks.count, sample_rate,
+            start_bpm, cfg, peak_bpm_time_sec=peak_time,
+            recovery_end_time_sec=recovery_end)
 
-    # Reference short-circuit: < 2 raw peaks → every raw peak is a "beat"
-    # with no debug info (bpm_analysis.py:115-116).
-    few = peaks.count.long() < 2
-    ccap = cfg.runtime.max_candidates
-    rp = peaks.positions
-    if rp.shape[1] < ccap:
-        rp = torch.cat([rp, torch.full((bsz, ccap - rp.shape[1]), n, dtype=rp.dtype,
-                                       device=rp.device)], dim=1)
-    slot = arange(ccap, envelope)[None, :]
-    few_pos = torch.where(slot < peaks.count.long()[:, None], rp[:, :ccap], n)
-    s1_pos = torch.where(few[:, None], few_pos, res.s1_positions).to(torch.int32)
-    s1_count = torch.where(few, torch.clamp(peaks.count, max=ccap),
-                           res.s1_count).to(torch.int32)
+        # Reference short-circuit: < 2 raw peaks → every raw peak is a "beat"
+        # with no debug info (bpm_analysis.py:115-116).
+        few = peaks.count.long() < 2
+        ccap = cfg.runtime.max_candidates
+        rp = peaks.positions
+        if rp.shape[1] < ccap:
+            rp = torch.cat([rp, torch.full((bsz, ccap - rp.shape[1]), n, dtype=rp.dtype,
+                                           device=rp.device)], dim=1)
+        slot = arange(ccap, envelope)[None, :]
+        few_pos = torch.where(slot < peaks.count.long()[:, None], rp[:, :ccap], n)
+        s1_pos = torch.where(few[:, None], few_pos, res.s1_positions).to(torch.int32)
+        s1_count = torch.where(few, torch.clamp(peaks.count, max=ccap),
+                               res.s1_count).to(torch.int32)
 
-    corr = corrections.refine_and_correct(
-        s1_pos, s1_count, peaks.positions, peaks.count, res.trace.peak_class,
-        envelope, nf.floor, sample_rate, cfg)
+    with span("bpm.corrections"):
+        corr = corrections.refine_and_correct(
+            s1_pos, s1_count, peaks.positions, peaks.count, res.trace.peak_class,
+            envelope, nf.floor, sample_rate, cfg)
 
-    metrics = analytics.compute_metrics(corr.positions, corr.count, sample_rate,
-                                        cfg, dtype)
+    with span("bpm.metrics"):
+        metrics = analytics.compute_metrics(corr.positions, corr.count, sample_rate,
+                                            cfg, dtype)
+        ok = corr.count >= 2
+        overflowed = (peaks.overflowed | nf.overflowed | res.s1_overflowed
+                      | corr.overflowed)
 
     return PipelineResult(
         floor=nf.floor,
@@ -200,9 +211,8 @@ def analyze_envelope(envelope: torch.Tensor, sample_rate: int, cfg: AnalyzerConf
         final_positions=corr.positions,
         final_count=corr.count,
         metrics=metrics,
-        ok=corr.count >= 2,
-        overflowed=(peaks.overflowed | nf.overflowed | res.s1_overflowed
-                    | corr.overflowed),
+        ok=ok,
+        overflowed=overflowed,
     )
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import upload
 from .cuda import filter_kernel
 from .indexing import arange, take
 
@@ -205,7 +206,7 @@ def filtfilt(b: np.ndarray, a: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     n = x.shape[1]
     if n <= padlen:
         raise ValueError(f"input length {n} must exceed padlen {padlen}")
-    zi = torch.as_tensor(lfilter_zi(b, a), dtype=x.dtype, device=x.device)
+    zi = upload("filter_zi", lfilter_zi(b, a), x.dtype, x.device)
     front = 2 * x[:, :1] - x[:, 1:padlen + 1].flip(1)
     back = 2 * x[:, -1:] - x[:, n - padlen - 1:n - 1].flip(1)
     ext = torch.cat([front, x, back], dim=1)
@@ -232,7 +233,7 @@ def filtfilt_masked(b: np.ndarray, a: np.ndarray, x: torch.Tensor,
     if n <= padlen:
         raise ValueError(f"input length {n} must exceed padlen {padlen}")
     nv = n_valid.long().reshape(bsz, 1)
-    zi = torch.as_tensor(lfilter_zi(b, a), dtype=x.dtype, device=x.device)
+    zi = upload("filter_zi", lfilter_zi(b, a), x.dtype, x.device)
 
     front = 2 * x[:, :1] - x[:, 1:padlen + 1].flip(1)
     ext = torch.cat([front, x, torch.zeros(bsz, padlen, dtype=x.dtype,
@@ -288,7 +289,7 @@ def fir_decimate(x: torch.Tensor, factor: int, taps_per_phase: int = 8) -> torch
     hp.flat[:n_taps] = h
     m_rows = out_len + n_phases - 1
     xp = torch.nn.functional.pad(x, (half, m_rows * factor - n - half))
-    hpt = torch.as_tensor(np.ascontiguousarray(hp.T), dtype=x.dtype, device=x.device)
+    hpt = upload("fir_taps", np.ascontiguousarray(hp.T), x.dtype, x.device)
     y2 = ordered_matmul(xp.reshape(bsz, m_rows, factor), hpt)   # (B, M, J)
     res = y2[:, 0:out_len, 0]
     for j in range(1, n_phases):

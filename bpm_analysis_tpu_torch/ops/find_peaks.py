@@ -29,6 +29,8 @@ import torch
 
 from .indexing import arange, scatter_drop, take
 from .quantile import _sortable_key
+from ..device import upload
+from ..utils.profiling import host_read
 
 
 class Peaks(NamedTuple):
@@ -323,8 +325,7 @@ def compact_slots(keep: torch.Tensor, capacity: int, arrays_with_fills):
     ok = arange(k, keep)[None, :] < count[:, None]
     outs = []
     for arr, fill in arrays_with_fills:
-        o = torch.where(ok, take(arr, src), torch.as_tensor(fill, dtype=arr.dtype,
-                                                            device=arr.device))
+        o = torch.where(ok, take(arr, src), upload("fill", fill, arr.dtype, arr.device))
         outs.append(_pad_to(o, capacity, fill))
     return outs, count.to(torch.int32), total > capacity
 
@@ -443,7 +444,7 @@ def _select_by_distance(positions: torch.Tensor, priority: torch.Tensor,
     bsz, cap = positions.shape
     dev = positions.device
     static = isinstance(distance, (int, float))
-    dist = torch.ceil(torch.as_tensor(distance, dtype=torch.float32, device=dev))
+    dist = torch.ceil(upload("distance", distance, torch.float32, dev))
     dist = dist.reshape(-1, 1).expand(bsz, 1) if dist.dim() else dist.reshape(1, 1)
     f32min = torch.finfo(torch.float32).min
     prio = torch.where(valid, priority.to(torch.float32),
@@ -514,7 +515,7 @@ def _select_by_distance(positions: torch.Tensor, priority: torch.Tensor,
 
     keep = torch.zeros_like(valid)
     alive = valid
-    while bool(alive.any()):       # one host sync per round
+    while host_read("nms", alive.any()):      # one host sync per round
         keep, alive = body(keep, alive)
     return keep & valid
 
@@ -572,7 +573,7 @@ def find_peaks(
         work_capacity = work_capacity or 4 * capacity
         mask = local_maxima_mask(x)
         if height is not None:
-            h = torch.as_tensor(height, dtype=x.dtype, device=x.device)
+            h = upload("height", height, x.dtype, x.device)
             mask = mask & (x >= (h[:, None] if h.dim() == 1 else h))
         peaks = _compact_mask(mask, work_capacity)
         prio_arr = None
@@ -611,7 +612,7 @@ def find_peaks(
             prom = peak_prominences(x, pos, valid, max_table=max_table,
                                     min_table=min_table,
                                     tables_negated=tables_negated)
-        thr = torch.as_tensor(prominence, dtype=x.dtype, device=x.device)
+        thr = upload("prominence", prominence, x.dtype, x.device)
         if thr.dim() == 1:
             thr = thr[:, None]
         keep = valid & (prom >= thr)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import upload
 from .indexing import arange, take
 from .quantile import _key_info, _key_to_float, _signed
 from .rolling import centered_bounds
@@ -69,9 +70,9 @@ def rolling_quantile_knots(
         hi_cap = torch.clamp(n_valid.long(), max=n).reshape(bsz, 1, 1)
 
     itype, nbits = _key_info(dtype)
-    qf = torch.tensor(q, dtype=dtype, device=dev)
+    qf = upload("quantile", q, dtype, dev)
     m = arange(nseg, knot_pos)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    inf = upload("quantile", float("inf"), dtype, dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     out = []
     for c0 in range(0, n_anchor, chunk):

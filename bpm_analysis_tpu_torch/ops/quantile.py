@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import upload
 from .indexing import arange, take
 from .rolling import centered_bounds
 
@@ -87,8 +88,7 @@ def quantile_exact(x: torch.Tensor, q: float, valid=None) -> torch.Tensor:
     if valid is None:
         valid = ~torch.isnan(x)
     n = valid.long().sum(dim=1)
-    pos = torch.tensor(q, dtype=x.dtype, device=x.device) \
-        * torch.clamp(n - 1, min=0).to(x.dtype)
+    pos = upload("quantile", q, x.dtype, x.device) * torch.clamp(n - 1, min=0).to(x.dtype)
     k_lo = torch.minimum(torch.clamp(torch.floor(pos).long(), min=0),
                          torch.clamp(n - 1, min=0))
     frac = pos - k_lo.to(x.dtype)
@@ -185,8 +185,7 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
     vsum = torch.cat([torch.zeros((bsz, 1), dtype=torch.int64, device=x.device),
                       torch.cumsum((~torch.isnan(x)).long(), dim=1)], dim=1)
     cnt = take(vsum, hi) - take(vsum, lo)
-    pos = torch.tensor(q, dtype=x.dtype, device=x.device) \
-        * torch.clamp(cnt - 1, min=0).to(x.dtype)
+    pos = upload("quantile", q, x.dtype, x.device) * torch.clamp(cnt - 1, min=0).to(x.dtype)
     k_lo = torch.floor(pos).long()
     k_hi = torch.minimum(k_lo + 1, torch.clamp(cnt - 1, min=0))
     frac = pos - k_lo.to(x.dtype)
@@ -212,7 +211,7 @@ def rolling_quantile_centered_sort(x: torch.Tensor, window: int, q: float,
                       big.expand(bsz, right)], dim=1)
     off = torch.zeros((bsz, 1), dtype=torch.bool, device=x.device)
     vpad = torch.cat([off.expand(bsz, left), valid, off.expand(bsz, right)], dim=1)
-    qf = torch.tensor(q, dtype=dtype, device=x.device)
+    qf = upload("quantile", q, dtype, x.device)
     out = []
     for c0 in range(0, n, chunk):
         c1 = min(n, c0 + chunk)
@@ -277,7 +276,7 @@ def _strided_anchors_of_padded(xpad: torch.Tensor, window: int, q: float,
     nan = float("nan")
     all_wins = xpad.unfold(1, window, stride)           # (B, n_anchor, window)
     n_anchor = all_wins.shape[1]
-    qf = torch.tensor(q, dtype=xpad.dtype, device=xpad.device)
+    qf = upload("quantile", q, xpad.dtype, xpad.device)
     out = []
     for a0 in range(0, n_anchor, chunk):
         wins = all_wins[:, a0:a0 + chunk]

@@ -37,7 +37,9 @@ the seconds since start:
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
    at float32, stride 64, ``quantile_backend="auto"``; launch counts (the
    filter kernel twice, the knot kernel twice, the classifier scan twice,
-   the rhythm scan once), warm wall time, a per-stage breakdown, and each
+   the rhythm scan once), warm wall time, the table of the program's
+   ``bpm.*`` spans from one traced batch (``utils/profiling.stage_table``:
+   host ms, device ms and launches of each stage), and each
    of those kernels against its plain version on the main path's own
    inputs with its time, bound and plain-version time (the classifier scan
    timed in both its passes; the rhythm scan queued behind a spin kernel, so
@@ -48,7 +50,7 @@ the seconds since start:
 6. the card against the port on the CPU, recordings 0 and 1;
 7. the strided-kernel path at full width: the same batch and configuration
    with ``quantile_backend="pallas"`` (the dense noise floor on the
-   strided-quantile kernel); launch counts, warm wall time, stage breakdown,
+   strided-quantile kernel); launch counts, warm wall time, the span table,
    the phase-5 accuracy gates, the kernel against its plain version at the
    path's own inputs with its time, bound, plain-version time and the
    ``torch.nanquantile`` yardstick, and the card against the CPU;
@@ -894,59 +896,21 @@ def run_main_path(batch_np, cfg, device):
     return pipeline.analyze_batch(env, SR, cfg, device=device)
 
 
-def stage_breakdown(batch_np, cfg):
-    """Seconds per pipeline stage on the card, each stage synchronized
-    (a separate run: the synchronizations cost the overlap they remove)."""
-    from bpm_analysis_tpu_torch.models import (analytics, classifier, corrections,
-                                               envelope as envm, noise_floor, pipeline)
-    from bpm_analysis_tpu_torch.ops import find_peaks as fp
+def stage_spans(batch_np, cfg) -> str:
+    """The main path's batch in one ``utils/profiling.device_trace``
+    capture, as a table of the program's ``bpm.*`` spans: count, host ms,
+    device ms (by correlation id) and launches of each."""
+    from bpm_analysis_tpu_torch.utils import profiling
 
-    times = {}
-
-    def timed(name_of, fn):
-        def wrapper(*a, **k):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spans_") as tmp:
+        with profiling.device_trace(tmp):
+            run_main_path(batch_np, cfg, "cuda")
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            name = name_of(a, k)
-            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return wrapper
-
-    from bpm_analysis_tpu_torch.ops import series
-    from bpm_analysis_tpu_torch.ops.cuda import quantile_kernel
-
-    patches = [
-        (fp, "build_extrema", lambda a, k: "build_extrema"),
-        (noise_floor, "dynamic_noise_floor", lambda a, k: "noise_floor"),
-        # Inside the noise floor on the dense path:
-        (series, "interpolate_dense", lambda a, k: "of which interpolate_dense"),
-        (quantile_kernel, "rolling_quantile_strided_cuda",
-         lambda a, k: "of which strided quantile (kernel + interp_anchors)"),
-        (pipeline, "raw_peaks", lambda a, k: "raw_peaks"),
-        (classifier, "classify",
-         lambda a, k: "classify_preliminary" if k.get("want_trace") is False
-         else "classify_main"),
-        (corrections, "refine_and_correct", lambda a, k: "corrections"),
-        (analytics, "compute_metrics", lambda a, k: "metrics"),
-    ]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    try:
-        for mod, attr, name_of in patches:
-            setattr(mod, attr, timed(name_of, getattr(mod, attr)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        env = envm.preprocess(batch_np, SR, cfg, device="cuda")[0]
-        torch.cuda.synchronize()
-        times["preprocess"] = time.perf_counter() - t0
-        pipeline.analyze_batch(env, SR, cfg, device="cuda")
-        torch.cuda.synchronize()
-        times["total"] = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    return times
+        with open(os.path.join(tmp, "trace.json")) as f:
+            table = profiling.stage_table(json.load(f)["traceEvents"])
+    return "; ".join(f"{name} {r['spans']}x host {r['host_ms']:.1f} ms device "
+                     f"{r['device_ms']:.1f} ms {r['launches']} launches"
+                     for name, r in table.items())
 
 
 def build_all() -> dict:
@@ -1832,9 +1796,7 @@ def main() -> int:
     log(f"warm wall time (best of 2): {best:.3f}s = {BATCH * 10 / best:.2f} audio-min/s "
         f"on {card}")
 
-    stages = stage_breakdown(batch, cfg)
-    log("stage breakdown (synchronized run): " + ", ".join(
-        f"{k} {v:.3f}s" for k, v in stages.items()))
+    log("stage spans (traced run): " + stage_spans(batch, cfg))
 
     # The kernel against its plain version at the main path's own inputs
     # (draft and final floor), then timed on the final-floor call.
@@ -1937,9 +1899,7 @@ def main() -> int:
     best_b2 = warm_best(batch, cfg_b2, 2)
     log(f"strided-kernel path warm wall time (best of 2): {best_b2:.3f}s = "
         f"{BATCH * 10 / best_b2:.2f} audio-min/s on {card}")
-    stages_b2 = stage_breakdown(batch, cfg_b2)
-    log("strided-kernel path stage breakdown (synchronized run): " + ", ".join(
-        f"{k} {v:.3f}s" for k, v in stages_b2.items()))
+    log("strided-kernel path stage spans (traced run): " + stage_spans(batch, cfg_b2))
     curves_b2 = check_accuracy(res_b2, oracle, "phase 7")
 
     real_strided = quantile_kernel.strided_quantile_anchors

@@ -11,8 +11,8 @@ the CPU (mirrors tests/test_apps.py).
 * ``apps/webapp.py``: the gated gradio import, the empty batch, the local
   upload cache and the gated HF-Hub upload through an injected stub.
 * ``utils/logging.py``: ``summarize`` and ``log_mechanism_firings`` print
-  JAX's text on the same float64 result; ``utils/profiling``: ``timed`` and
-  ``device_trace`` on the CPU.
+  JAX's text on the same float64 result; ``utils/profiling``: a ``span``
+  inside ``device_trace`` on the CPU, read back by ``stage_table``.
 """
 import dataclasses
 import json
@@ -299,13 +299,11 @@ def test_logging_utils_print_jax_text(tmp_path, caplog):
         assert caplog.records[-1].getMessage() == "--- Stage 1 ---"
 
 
-def test_profiling_timed_and_trace(tmp_path, caplog):
-    times = {}
-    with caplog.at_level(logging.INFO):
-        with tprofiling.timed("stage", times):
-            torch.ones(1000).cumsum(0)
-    assert times["stage"] >= 0.0 and "stage finished in" in caplog.records[-1].getMessage()
+def test_profiling_timed_and_trace(tmp_path):
     with tprofiling.device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(1000).cumsum(0)
+        with tprofiling.span("bpm.stage"):
+            torch.ones(1000).cumsum(0)
     assert any("cumsum" in e.key for e in prof.key_averages())
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    row = tprofiling.stage_table(events)["bpm.stage"]
+    assert row["spans"] == 1 and row["host_ms"] > 0.0
