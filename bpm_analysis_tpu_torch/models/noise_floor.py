@@ -41,7 +41,7 @@ from ..ops import find_peaks as fp
 from ..ops import knot_quantile as kq
 from ..ops import quantile as q
 from ..ops import series
-from ..ops.cuda import knot_kernel, quantile_kernel
+from ..ops.cuda import knot_kernel, quantile_kernel, row_quantile_kernel
 from ..ops.indexing import arange, take
 from . import envelope as envm
 
@@ -90,8 +90,8 @@ def dynamic_noise_floor(
               fp.distance_capacity_bound(n, max(min_dist, 1)))
     valid, env_m = envm.edge_held(envelope, n_valid)
 
-    trough_prom = q.quantile_exact(envelope, cfg.features.trough_prominence_quantile,
-                                   valid=valid)
+    trough_prom = row_quantile_kernel.quantile_exact(
+        envelope, cfg.features.trough_prominence_quantile, valid=valid)
     if extrema is not None:
         # Extrema were built on env == -(-env_m): the envelope's minima ARE
         # the trough candidates, prioritized by their negated heights.
@@ -139,10 +139,11 @@ def dynamic_noise_floor(
     # --- final floor from sanitized troughs, and the fallback ladder --------
     sc = sane_count.long()[:, None]
     floor, all_nan = final_of(sane_pos, sane_amp, sane_count, sc > 2)
-    static_all_nan = q.quantile_exact(envelope, ncfg.all_nan_fallback_quantile,
-                                      valid=valid)
+    static_all_nan = row_quantile_kernel.quantile_exact(
+        envelope, ncfg.all_nan_fallback_quantile, valid=valid)
     floor = torch.where(all_nan, static_all_nan[:, None], floor)
-    static_few = q.quantile_exact(envelope, ncfg.noise_floor_quantile, valid=valid)
+    static_few = row_quantile_kernel.quantile_exact(envelope, ncfg.noise_floor_quantile,
+                                                valid=valid)
     few_troughs = troughs.count.long()[:, None] < 5
     floor = torch.where(few_troughs, static_few[:, None], floor)
 

@@ -1,8 +1,10 @@
 """Exact order statistics and anchor-grid helpers for the noise floor.
 
 Port of ``bpm_analysis_tpu/ops/quantile.py``: sortable float keys, the
-radix-bisection ``select_kth``/``quantile_exact`` (pandas/numpy
-linear-interpolation quantiles without a sort), the dense rolling quantiles
+radix-bisection ``select_kth``/``quantile_exact_plain`` (pandas/numpy
+linear-interpolation quantiles without a sort; on a card the row-quantile
+kernel, ``ops/cuda/row_quantile_kernel``, computes the same bits), the dense
+rolling quantiles
 (the exact wavelet-tree ``rolling_quantile_centered`` and the strided
 row-select ``rolling_quantile_centered_strided``), the anchor expansion
 ``interp_anchors`` and the NaN fills.  Every function works on the rows of
@@ -82,9 +84,11 @@ def select_kth(x: torch.Tensor, valid: torch.Tensor, k: torch.Tensor) -> torch.T
     return _key_to_float(prefix, x.dtype)
 
 
-def quantile_exact(x: torch.Tensor, q: float, valid=None) -> torch.Tensor:
+def quantile_exact_plain(x: torch.Tensor, q: float, valid=None) -> torch.Tensor:
     """``np.quantile(x[r][valid[r]], q)`` (linear interpolation) per row of
-    (B, n) ``x`` without sorting; NaN for a row with no valid element."""
+    (B, n) ``x`` without sorting; NaN for a row with no valid element.  The
+    plain version of the row-quantile kernel, which the CPU runs
+    (``ops/cuda/row_quantile_kernel.quantile_exact``)."""
     if valid is None:
         valid = ~torch.isnan(x)
     n = valid.long().sum(dim=1)

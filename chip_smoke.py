@@ -7,7 +7,7 @@ Run from the repository root.  Phases, each printed on its own line with
 the seconds since start:
 
 1. device: the card's name, power limit and maximum SM clock (``nvidia-smi``);
-2. build: the five CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
+2. build: the six CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
    parallel, with each build's time;
 3. each kernel vs its plain version on the card: the knot kernel's fast
    division against IEEE division over 2^30 operand pairs, the classifier
@@ -22,6 +22,11 @@ the seconds since start:
    6037 and 24575 keys, the tiled design's edges (a ragged last tile, a row
    shorter than one tile, all-equal and all-missing windows, heavy ties,
    keys on both sides of a 24-bit prefix boundary) and engine-shaped series;
+   the row-quantile kernel against ``ops/quantile.quantile_exact_plain``
+   bit for bit on ``row_quantile_cases`` (signed zeros, all-equal rows, one
+   and no valid element, +-inf, NaN without a mask, ties, envelopes) at
+   q = 0, 0.1, 0.5, 1, both dtypes, three rows of 7 and rows of 229,825
+   alone (a cluster of blocks a row);
    the classifier and rhythm scans against ``classifier.scan_plain`` and
    ``corrections.rhythm_scan_plain`` on four one-minute recordings (rows cut
    to 0, 1, 2 and 4 peaks, a row at full capacity), float32 and float64,
@@ -36,15 +41,18 @@ the seconds since start:
 4. the main path at full width: 16 ten-minute recordings (302 Hz,
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
    at float32, stride 64, ``quantile_backend="auto"``; launch counts (the
-   filter kernel twice, the knot kernel twice, the classifier scan twice,
-   the rhythm scan once), warm wall time, the table of the program's
+   filter kernel twice, the knot kernel twice, the row quantile four times,
+   the classifier scan twice, the rhythm scan once), warm wall time, the
+   table of the program's
    ``bpm.*`` spans from one traced batch (``utils/profiling.stage_table``:
    host ms, device ms and launches of each stage), and each
    of those kernels against its plain version on the main path's own
    inputs with its time, bound and plain-version time (the classifier scan
    timed in both its passes; the rhythm scan queued behind a spin kernel, so
    that the card and not the host's issue times it, beside an empty launch
-   timed the same way);
+   timed the same way; the row quantile also at the fleet cell's shape, the
+   envelope tiled to 512 rows without and with a valid-prefix mask, with
+   ``torch.nanquantile`` by rows as the library yardstick);
 5. accuracy against the CPU reference's beats and BPM curves
    (``bench_cpu_baseline.json``): worst beat F1 >= 0.99, BPM MAE < 0.5;
 6. the card against the port on the CPU, recordings 0 and 1;
@@ -366,6 +374,53 @@ def strided_kernel_cases():
         eng[r] = base
     cases.append(("engine_shapes", eng, 3020, 64, 0.2, 3))
     return cases
+
+
+ROW_QUANTILE_QS = (0.0, 0.1, 0.5, 1.0)
+
+
+def row_quantile_cases(n: int, seed: int = 0) -> list:
+    """(name, x, valid) cases of the row-quantile kernel: three float64 rows
+    of length ``n`` and a bool mask, or None for ``~isnan(x)``.  Signed zeros
+    around the median (-0.0 and +0.0 tie as floats, not as keys), all-equal
+    rows, one valid element, no valid element (a false mask, all-NaN rows),
+    negative values with +-inf, NaN without a mask, heavy ties under a
+    random mask, and smooth positive envelopes with a valid prefix (the main
+    path's rows)."""
+    rng = np.random.RandomState(seed)
+    full = np.ones((3, n), dtype=bool)
+    m = n // 3
+    zeros = np.where(np.arange(m) % 2 == 0, -0.0, 0.0)
+    signed = np.stack([rng.permutation(np.concatenate(
+        [-rng.rand(m) - 0.5, zeros, rng.rand(n - 2 * m) + 0.5])) for _ in range(3)])
+    one = np.zeros((3, n), dtype=bool)
+    one[np.arange(3), rng.randint(0, n, size=3)] = True
+    infs = rng.randn(3, n) * 100 - 50
+    infs[rng.rand(3, n) < 0.05] = -np.inf
+    infs[rng.rand(3, n) < 0.05] = np.inf
+    nans = rng.randn(3, n)
+    nans[rng.rand(3, n) < 0.3] = np.nan
+    smooth = np.stack([np.abs(np.convolve(rng.randn(n + 30), np.ones(31) / 31, mode="valid"))
+                       for _ in range(3)]) + 0.05
+    prefix = np.arange(n)[None, :] < (n - np.arange(3) * (n // 7))[:, None]
+    return [("signed_zeros", signed, full),
+            ("all_equal", np.stack([np.full(n, v) for v in (2.5, -0.0, -3.0)]), None),
+            ("one_valid", rng.randn(3, n) * 10, one),
+            ("no_valid", rng.randn(3, n), np.zeros((3, n), dtype=bool)),
+            ("all_nan", np.full((3, n), np.nan), None),
+            ("negative_inf", infs, full),
+            ("nan_no_mask", nans, None),
+            ("ties_masked", np.round(rng.randn(3, n) * 3), rng.rand(3, n) < 0.7),
+            ("envelope_prefix", smooth, prefix)]
+
+
+def same_values(got: torch.Tensor, exp: torch.Tensor) -> bool:
+    """Bit for bit, NaN equal to NaN whatever its payload."""
+    nan = torch.isnan(exp)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[exp.dtype]
+    return torch.equal(got[~nan].view(ints), exp[~nan].view(ints))
 
 
 def compare(got: torch.Tensor, exp: torch.Tensor, rtol=RTOL, atol=ATOL):
@@ -859,10 +914,12 @@ def check_filter_cases(dev) -> float:
 
 def reset_launches():
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 quantile_kernel, rhythm_kernel)
+                                                 quantile_kernel, rhythm_kernel,
+                                                 row_quantile_kernel)
 
     knot_kernel.launches = 0
     quantile_kernel.launches = 0
+    row_quantile_kernel.launches = 0
     classify_kernel.launches = 0
     rhythm_kernel.launches = 0
     filter_kernel.launches = 0
@@ -872,21 +929,24 @@ def reset_launches():
 
 def read_launches() -> dict:
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 quantile_kernel, rhythm_kernel)
+                                                 quantile_kernel, rhythm_kernel,
+                                                 row_quantile_kernel)
 
     return {"knot_quantile": knot_kernel.launches,
             "strided_quantile": quantile_kernel.launches,
+            "row_quantile": row_quantile_kernel.launches,
             "classify_scan": classify_kernel.launches,
             "rhythm_scan": rhythm_kernel.launches,
             "block_filter": filter_kernel.launches}
 
 
 # Launches of one batch through preprocess and analyze_batch: the filtfilt's
-# two passes, two classifier passes, one rhythm correction, and the noise
-# floor's quantile kernel twice.
-SCANS = {"classify_scan": 2, "rhythm_scan": 1}
-AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, **SCANS, "block_filter": 2}
-PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, **SCANS, "block_filter": 2}
+# two passes, two classifier passes, one rhythm correction, the noise
+# floor's quantile kernel twice, and the row quantile four times (three
+# global quantiles of the noise floor, the raw peaks' prominence).
+PER_BATCH = {"classify_scan": 2, "rhythm_scan": 1, "row_quantile": 4}
+AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, **PER_BATCH, "block_filter": 2}
+PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, **PER_BATCH, "block_filter": 2}
 
 
 def run_main_path(batch_np, cfg, device):
@@ -923,8 +983,8 @@ def build_all() -> dict:
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("knot_quantile", "strided_quantile", "classify_scan", "rhythm_scan",
-             "block_filter")
+    names = ("knot_quantile", "strided_quantile", "row_quantile", "classify_scan",
+             "rhythm_scan", "block_filter")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         return dict(zip(names, pool.map(timed, names)))
 
@@ -967,6 +1027,47 @@ def check_strided_cases(dev) -> float:
             f"max abs err {err:.3g}, max rel err {rel:.3g}")
         check(ok, f"strided kernel disagrees with its plain version on {name}")
     return worst_err
+
+
+def check_row_quantile_cases(dev) -> None:
+    """The row-quantile kernel against its plain version, bit for bit, on
+    every case at q = 0, 0.1, 0.5 and 1, in both dtypes: three ragged rows
+    of 7 (one block each) and each of three rows of the serial cell's
+    envelope length alone (a cluster shares the row)."""
+    from bpm_analysis_tpu_torch.ops import quantile
+    from bpm_analysis_tpu_torch.ops.cuda import row_quantile_kernel
+
+    for n, rows in ((7, (slice(0, 3),)), (229_825, (slice(0, 1), slice(1, 2), slice(2, 3)))):
+        for dtype in (torch.float32, torch.float64):
+            for name, x, valid in row_quantile_cases(n):
+                xt = torch.from_numpy(x).to(dev, dtype)
+                vt = None if valid is None else torch.from_numpy(valid).to(dev)
+                for r in rows:
+                    xb, vb = xt[r].contiguous(), None if vt is None else vt[r].contiguous()
+                    for q in ROW_QUANTILE_QS:
+                        got = row_quantile_kernel.quantile_exact(xb, q, vb)
+                        exp = quantile.quantile_exact_plain(xb, q, vb)
+                        check(same_values(got, exp),
+                              f"row-quantile kernel differs from its plain version on {name} "
+                              f"{tuple(xb.shape)} {dtype} q={q}: {got} vs {exp}")
+    log(f"  row-quantile kernel vs plain: every case equal at (3, 7) and (1, 229825), "
+        f"float32 and float64 (split at B=1: {row_quantile_kernel.split(1)} blocks a row)")
+
+
+def row_quantile_bound(x, valid) -> float:
+    """Least time for one row quantile of ``x`` (B, n): each element, and
+    its mask byte if there is a mask, read once at HBM bandwidth, in ms."""
+    return x.numel() * (x.element_size() + (valid is not None)) / PEAK_BYTES_S * 1e3
+
+
+def nanquantile_batch(x, q, valid):
+    """The library yardstick for the row quantile: ``torch.nanquantile`` of
+    each row with the invalid elements as NaN, in chunks of rows under its
+    2^24-element input limit."""
+    xm = x if valid is None else torch.where(valid, x, torch.full_like(x, float("nan")))
+    rows = max(1, (1 << 24) // x.shape[1])
+    return torch.cat([torch.nanquantile(xm[r:r + rows], q, dim=1)
+                      for r in range(0, x.shape[0], rows)])
 
 
 def counted_run(batch, cfg, captures: dict):
@@ -1063,9 +1164,10 @@ def check_vulpine_default(card, dev):
         launches = read_launches()
         log(f"  vulpine, default config, prominence_backend={backend!r}, float64: "
             f"{seconds:.2f}s on {card}; {got}; launches {launches}")
-        check(launches == {"knot_quantile": 0, "strided_quantile": 0, **SCANS,
+        check(launches == {"knot_quantile": 0, "strided_quantile": 0, **PER_BATCH,
                            "block_filter": 0},
-              f"{backend}: expected the float64 scan kernels only, got {launches}")
+              f"{backend}: expected the float64 scan and row-quantile kernels only, "
+              f"got {launches}")
         check(got["trough_count"] == len(oracle["sanitized_troughs"]),
               f"{backend}: trough count {got['trough_count']}")
         check(got["raw_peak_count"] == len(oracle["all_raw_peaks"]),
@@ -1706,8 +1808,10 @@ def main() -> int:
     from bpm_analysis_tpu_torch.ops import knot_quantile as kq
     from bpm_analysis_tpu_torch.models import classifier, corrections
     from bpm_analysis_tpu_torch.ops import filter as filt
+    from bpm_analysis_tpu_torch.ops import quantile
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 quantile_kernel, rhythm_kernel)
+                                                 quantile_kernel, rhythm_kernel,
+                                                 row_quantile_kernel)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1733,8 +1837,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     builds = build_all()
-    for wrapper in (knot_kernel, quantile_kernel, classify_kernel, rhythm_kernel,
-                    filter_kernel):
+    for wrapper in (knot_kernel, quantile_kernel, row_quantile_kernel, classify_kernel,
+                    rhythm_kernel, filter_kernel):
         wrapper._library()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
@@ -1759,6 +1863,7 @@ def main() -> int:
           "the classify kernel's fast division differs from IEEE division")
     knot_err = check_knot_cases(dev)
     strided_err = check_strided_cases(dev)
+    check_row_quantile_cases(dev)
     classify_err, rhythm_err = check_scan_cases(dev)
     filter_err = check_filter_cases(dev)
     log(f"phase 3 kernels vs plain: ok (knot rtol {RTOL} atol {ATOL}; strided rtol "
@@ -1776,8 +1881,9 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"first run (cold): {time.perf_counter() - t0:.2f}s")
 
-    captured, c_captured, r_captured, f_captured = [], [], [], []
+    captured, c_captured, r_captured, f_captured, q_captured = [], [], [], [], []
     res, launches = counted_run(batch, cfg, {
+        (row_quantile_kernel, "quantile_exact"): q_captured,
         (noise_floor.knot_kernel, "knot_quantile_anchors"): captured,
         (classify_kernel, "classify_scan"): c_captured,
         (rhythm_kernel, "rhythm_scan"): r_captured,
@@ -1871,6 +1977,40 @@ def main() -> int:
     log(f"filter kernel at the main path's shapes {tuple(a[2].shape)}: both passes equal; "
         f"{f_kernel_ms:.4f} ms (plain {f_plain_ms:.1f} ms, bound {f_bound_ms:.5f} ms by "
         f"{f_bound_by}, {100 * f_bound_ms / f_kernel_ms:.1f}% of it) on {card}")
+    # The row quantile against its plain version on the path's four calls,
+    # then at the fleet cell's shape: the last call's envelope tiled to 512
+    # rows, without a mask as the fleet path calls it and with a valid
+    # prefix as the host path does, each timed beside its bound, the plain
+    # version and the library yardstick.
+    real_quantile = row_quantile_kernel.quantile_exact
+    for (a, k) in q_captured:
+        check(same_values(real_quantile(*a, **k), quantile.quantile_exact_plain(*a, **k)),
+              "row-quantile kernel differs from its plain version on the main path")
+    (env16, q_main), _ = q_captured[-1]
+    x512 = env16.repeat(-(-512 // env16.shape[0]), 1)[:512].contiguous()
+    q_n = x512.shape[1]
+    q_prefix = (torch.arange(q_n, device=dev)[None, :]
+                < q_n - 1000 * (torch.arange(512, device=dev)[:, None] % 7))
+    q_rows = {}
+    for label, v512 in (("no mask", None), ("valid prefix", q_prefix)):
+        got = real_quantile(x512, q_main, valid=v512)
+        exp = quantile.quantile_exact_plain(x512, q_main, valid=v512)
+        q_err = float((got - exp).abs().max())
+        check(same_values(got, exp),
+              f"row-quantile kernel differs from its plain version at (512, n), {label}")
+        q_kernel_ms = cuda_ms(lambda: real_quantile(x512, q_main, valid=v512), 20)
+        q_plain_ms = cuda_ms(lambda: quantile.quantile_exact_plain(x512, q_main, valid=v512), 3)
+        q_library_ms = cuda_ms(lambda: nanquantile_batch(x512, q_main, v512), 1)
+        q_bound_ms = row_quantile_bound(x512, v512)
+        q_rows[label] = {"max_abs_err": q_err, "ms": q_kernel_ms, "plain_ms": q_plain_ms,
+                         "bound_ms": q_bound_ms, "bound_by": "bytes",
+                         "library_ms": q_library_ms}
+        log(f"row-quantile kernel at the fleet shape {tuple(x512.shape)} {x512.dtype}, "
+            f"{label}, q={q_main}: {q_kernel_ms:.4f} ms, bound {q_bound_ms:.4f} ms by bytes "
+            f"({100 * q_bound_ms / q_kernel_ms:.1f}% of it), plain {q_plain_ms:.3f} ms, "
+            f"library (torch.nanquantile by rows) {q_library_ms:.3f} ms, max abs err {q_err} "
+            f"on {card}")
+    log(f"  the path's {len(q_captured)} row-quantile calls at {tuple(env16.shape)}: equal")
     log("phase 4 main path: ok")
 
     # ---- 5. accuracy against the CPU reference -----------------------------
@@ -1965,6 +2105,13 @@ def main() -> int:
         "bound_ms": s_bound_ms,
         "bound_by": s_bound_by,
         "library_ms": s_library_ms,
+    }, {
+        "name": "row_quantile",
+        "route": "cuda",
+        "source": "bpm_analysis_tpu_torch/csrc/row_quantile.cu",
+        "replaces": "bpm_analysis_tpu/ops/quantile.py:146",
+        "launches": launches["row_quantile"],
+        **q_rows["no mask"],
     }, {
         "name": "classify_scan",
         "route": "cuda",

@@ -1,6 +1,6 @@
-"""The CUDA kernels (knot quantile, strided quantile, classifier scan,
-rhythm scan, blocked filter and its phase entry points) against their plain
-versions, on the card.
+"""The CUDA kernels (knot quantile, strided quantile, row quantile,
+classifier scan, rhythm scan, blocked filter and its phase entry points)
+against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The machine
 with the card has no JAX, so run these without the suite's conftest (which
@@ -15,8 +15,9 @@ import torch
 import chip_smoke
 import test_torch_filter_batch
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
+from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                             quantile_kernel, rhythm_kernel)
+                                             quantile_kernel, rhythm_kernel, row_quantile_kernel)
 
 CASES = chip_smoke.kernel_cases()
 FILTER_CASES = chip_smoke.filter_cases()
@@ -320,6 +321,57 @@ def test_strided_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         quantile_kernel.strided_quantile_anchors(x, quantile_kernel.MAX_WINDOW + 1, 0.2, 3, 8)
     assert quantile_kernel.launches == before
+
+
+# The fleet cell's batch, the serial cell's envelope (one ten-minute 44.1 kHz
+# WAV decimated by 146 from its 2^25-sample bucket), a ragged small shape.
+ROW_QUANTILE_SHAPES = [(512, 181_200), (1, 229_825), (3, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("shape", ROW_QUANTILE_SHAPES, ids=str)
+def test_row_quantile_kernel_matches_plain_version(shape, dtype):
+    """Every case of ``chip_smoke.row_quantile_cases`` at q = 0, 0.1, 0.5
+    and 1 bit for bit (NaN equal to NaN), one launch a call; the batch of 512
+    tiles the three rows, the batch of 1 takes each row alone (a cluster
+    shares it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bsz, n = shape
+    if bsz == 1:
+        assert row_quantile_kernel.split(1) > 1
+    for name, x, valid in chip_smoke.row_quantile_cases(n):
+        xt = torch.from_numpy(x).to("cuda", dtype)
+        vt = None if valid is None else torch.from_numpy(valid).to("cuda")
+        if bsz == 1:
+            batches = [(xt[r:r + 1], None if vt is None else vt[r:r + 1]) for r in range(3)]
+        else:
+            reps = -(-bsz // 3)
+            batches = [(xt.repeat(reps, 1)[:bsz].contiguous(),
+                        None if vt is None else vt.repeat(reps, 1)[:bsz].contiguous())]
+        for xb, vb in batches:
+            for q in chip_smoke.ROW_QUANTILE_QS:
+                before = row_quantile_kernel.launches
+                got = row_quantile_kernel.quantile_exact(xb, q, vb)
+                torch.cuda.synchronize()
+                assert row_quantile_kernel.launches == before + 1
+                exp = tq.quantile_exact_plain(xb, q, vb)
+                assert chip_smoke.same_values(got, exp), (name, q, got[:3], exp[:3])
+
+
+@pytest.mark.gpu
+def test_row_quantile_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.ones((2, 400), dtype=torch.float32, device="cuda")
+    valid = torch.ones((2, 400), dtype=torch.bool, device="cuda")
+    before = row_quantile_kernel.launches
+    for bad, v in ((x.to(torch.int32), None), (x.half(), None), (x[:, ::2], None),
+                   (x[0], None), (x, valid[:, :200]), (x, valid.cpu())):
+        with pytest.raises(ValueError):
+            row_quantile_kernel.quantile_exact(bad, 0.2, v)
+    assert row_quantile_kernel.launches == before
 
 
 @pytest.mark.gpu

@@ -52,7 +52,7 @@ def test_select_kth_matches_jax(dtype):
 @pytest.mark.parametrize("q", [0.1, 0.2, 0.5])
 def test_quantile_exact_matches_jax(dtype, q):
     x = _rows(dtype)
-    got = tq.quantile_exact(torch.from_numpy(x), q).numpy()
+    got = tq.quantile_exact_plain(torch.from_numpy(x), q).numpy()
     exp = np.array([np.asarray(jq.quantile_exact(jnp.asarray(r), q)) for r in x])
     rtol = 1e-12 if dtype == np.float64 else 1e-6
     np.testing.assert_allclose(got, exp, rtol=rtol, equal_nan=True)
@@ -61,12 +61,12 @@ def test_quantile_exact_matches_jax(dtype, q):
 
 def test_quantile_exact_length_one_and_masked():
     x = np.array([[4.5], [np.nan]])
-    got = tq.quantile_exact(torch.from_numpy(x), 0.2).numpy()
+    got = tq.quantile_exact_plain(torch.from_numpy(x), 0.2).numpy()
     assert got[0] == 4.5 and np.isnan(got[1])
     y = _rows(np.float64)
     valid = np.arange(y.shape[1])[None, :] < np.array([[200], [100], [0], [1]])
     valid &= ~np.isnan(y)
-    got = tq.quantile_exact(torch.from_numpy(y), 0.1, valid=torch.from_numpy(valid)).numpy()
+    got = tq.quantile_exact_plain(torch.from_numpy(y), 0.1, valid=torch.from_numpy(valid)).numpy()
     exp = np.array([np.asarray(jq.quantile_exact(jnp.asarray(y[r]), 0.1,
                                                  valid=jnp.asarray(valid[r])))
                     for r in range(y.shape[0])])
