@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..device import upload
+from ..utils.profiling import span
 from .indexing import arange, take
 from .rolling import centered_bounds
 
@@ -179,24 +180,29 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
     interpolates linearly between the two straddling order statistics of the
     window's valid values, and a window with fewer than ``min_periods`` is
     NaN.  A wavelet tree over the value ranks answers every window's range
-    selection in L = ceil(log2 n) gather rounds."""
-    bsz, n = x.shape
-    left, right = centered_bounds(window)
-    levels, sorted_vals, L = _build_wavelet_levels(x)
-    idx = arange(n, x)[None, :].expand(bsz, n)
-    lo = torch.clamp(idx - left, min=0)
-    hi = torch.clamp(idx + right + 1, max=n)
-    vsum = torch.cat([torch.zeros((bsz, 1), dtype=torch.int64, device=x.device),
-                      torch.cumsum((~torch.isnan(x)).long(), dim=1)], dim=1)
-    cnt = take(vsum, hi) - take(vsum, lo)
-    pos = upload("quantile", q, x.dtype, x.device) * torch.clamp(cnt - 1, min=0).to(x.dtype)
-    k_lo = torch.floor(pos).long()
-    k_hi = torch.minimum(k_lo + 1, torch.clamp(cnt - 1, min=0))
-    frac = pos - k_lo.to(x.dtype)
-    v_lo = _wavelet_select(levels, sorted_vals, L, lo, hi, k_lo)
-    v_hi = _wavelet_select(levels, sorted_vals, L, lo, hi, k_hi)
-    out = torch.where(frac > 0, v_lo + frac * (v_hi - v_lo), v_lo)
-    return torch.where(cnt >= min_periods, out, torch.full_like(out, float("nan")))
+    selection in L = ceil(log2 n) gather rounds.  Spans: ``bpm.rolling_exact``
+    around the call, ``.build`` around the tree, ``.select`` around both
+    selections."""
+    with span("bpm.rolling_exact"):
+        bsz, n = x.shape
+        left, right = centered_bounds(window)
+        with span("bpm.rolling_exact.build"):
+            levels, sorted_vals, L = _build_wavelet_levels(x)
+        idx = arange(n, x)[None, :].expand(bsz, n)
+        lo = torch.clamp(idx - left, min=0)
+        hi = torch.clamp(idx + right + 1, max=n)
+        vsum = torch.cat([torch.zeros((bsz, 1), dtype=torch.int64, device=x.device),
+                          torch.cumsum((~torch.isnan(x)).long(), dim=1)], dim=1)
+        cnt = take(vsum, hi) - take(vsum, lo)
+        pos = upload("quantile", q, x.dtype, x.device) * torch.clamp(cnt - 1, min=0).to(x.dtype)
+        k_lo = torch.floor(pos).long()
+        k_hi = torch.minimum(k_lo + 1, torch.clamp(cnt - 1, min=0))
+        frac = pos - k_lo.to(x.dtype)
+        with span("bpm.rolling_exact.select"):
+            v_lo = _wavelet_select(levels, sorted_vals, L, lo, hi, k_lo)
+            v_hi = _wavelet_select(levels, sorted_vals, L, lo, hi, k_hi)
+        out = torch.where(frac > 0, v_lo + frac * (v_hi - v_lo), v_lo)
+        return torch.where(cnt >= min_periods, out, torch.full_like(out, float("nan")))
 
 
 def rolling_quantile_centered_sort(x: torch.Tensor, window: int, q: float,

@@ -516,3 +516,33 @@ def test_dp_ranks_share_the_card(tmp_path):
         np.testing.assert_array_equal(trip["gathered"],
                                       np.arange(5, dtype=np.float32) + [[0], [10]])
         np.testing.assert_array_equal(trip["summed"], 2 * np.arange(5) + 10)
+
+
+@pytest.mark.gpu
+def test_exact_f64_floor_equals_the_plain_reference_at_full_width():
+    """``analyze_batch`` at the ``exact-f64`` configuration on 4 rows of the
+    ``exact-f64-b256`` cell's first batch (181,200 float64 samples each):
+    the floor equals, bit for bit, the plain reference
+    (``bench_port/reference/exact_floor.py``: sorted windows) rebuilt from
+    the result's sanitized troughs and the envelope.  Both select values of
+    the series and finish with the same operations in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bench_port import core
+    from bench_port.reference import exact_floor
+    from bench_port.traffic import fleet_rows
+    from bpm_analysis_tpu_torch.models import envelope, noise_floor, pipeline
+
+    spec = core.cell_spec("exact-f64-b256")
+    cfg = core.program_config(spec.config["runtime"])
+    assert noise_floor.quantile_path(cfg) == "exact"
+    rows = fleet_rows.make(spec.workload["traffic"], 2**31 + 18, "")["batches"][0][:4]
+    env = envelope.preprocess(rows, 302, cfg)[0]
+    res = pipeline.analyze_batch(env, 302, cfg)
+    assert env.dtype == res.floor.dtype == torch.float64 and env.shape == (4, 181_200)
+    assert (res.trough_count > 2).all() and not res.overflowed.any()
+    exp = exact_floor.floors(env, res.trough_positions, res.trough_count,
+                             int(cfg.noise.noise_window_sec * 302), cfg.noise.noise_floor_quantile)
+    err = (res.floor - exp).abs().nan_to_num(nan=float("inf")).max().item()
+    print(f"exact-f64 floor against the plain reference, 4 x 181,200: max abs error {err!r}")
+    assert chip_smoke.same_values(res.floor, exp), err
