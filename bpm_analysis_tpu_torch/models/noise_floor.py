@@ -27,8 +27,9 @@ as the JAX package selects it:
   float32;
 * any other stride > 1: the dense strided quantile
   ``rolling_quantile_centered_strided`` (the JAX "xla" backend);
-* stride 1, whatever the backend: the exact wavelet-tree
-  ``rolling_quantile_centered`` (pandas parity).
+* stride 1, whatever the backend: the exact ``rolling_quantile_centered``
+  (pandas parity), on the CUDA rolling-quantile kernel for CUDA tensors and
+  its wavelet-tree plain version for CPU tensors.
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ Port of ``bpm_analysis_tpu/ops/quantile.py``: sortable float keys, the
 radix-bisection ``select_kth``/``quantile_exact_plain`` (pandas/numpy
 linear-interpolation quantiles without a sort; on a card the row-quantile
 kernel, ``ops/cuda/row_quantile_kernel``, computes the same bits), the dense
-rolling quantiles
-(the exact wavelet-tree ``rolling_quantile_centered`` and the strided
-row-select ``rolling_quantile_centered_strided``), the anchor expansion
+rolling quantiles (the exact ``rolling_quantile_centered``, whose plain
+version is a wavelet tree and which a card computes with
+``ops/cuda/rolling_quantile_kernel``, and the strided row-select
+``rolling_quantile_centered_strided``), the anchor expansion
 ``interp_anchors`` and the NaN fills.  Every function works on the rows of
 a (B, n) batch.
 
@@ -179,10 +180,22 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
     each row of ``x`` (B, n), exact: NaN is missing, the quantile
     interpolates linearly between the two straddling order statistics of the
     window's valid values, and a window with fewer than ``min_periods`` is
-    NaN.  A wavelet tree over the value ranks answers every window's range
-    selection in L = ceil(log2 n) gather rounds.  Spans: ``bpm.rolling_exact``
-    around the call, ``.build`` around the tree, ``.select`` around both
-    selections."""
+    NaN.  A CPU tensor takes :func:`rolling_quantile_centered_plain`; any
+    other launches the rolling-quantile kernel
+    (``ops/cuda/rolling_quantile_kernel``, bit-equal to the plain version)."""
+    if x.device.type == "cpu":
+        return rolling_quantile_centered_plain(x, window, q, min_periods)
+    from .cuda import rolling_quantile_kernel
+
+    return rolling_quantile_kernel.rolling_quantile_centered(x, window, q, min_periods)
+
+
+def rolling_quantile_centered_plain(x: torch.Tensor, window: int, q: float,
+                                    min_periods: int = 1) -> torch.Tensor:
+    """The plain version of :func:`rolling_quantile_centered`: a wavelet tree
+    over the value ranks answers every window's range selection in
+    L = ceil(log2 n) gather rounds.  Spans: ``bpm.rolling_exact`` around the
+    call, ``.build`` around the tree, ``.select`` around both selections."""
     with span("bpm.rolling_exact"):
         bsz, n = x.shape
         left, right = centered_bounds(window)

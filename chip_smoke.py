@@ -7,7 +7,7 @@ Run from the repository root.  Phases, each printed on its own line with
 the seconds since start:
 
 1. device: the card's name, power limit and maximum SM clock (``nvidia-smi``);
-2. build: the six CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
+2. build: the seven CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
    parallel, with each build's time;
 3. each kernel vs its plain version on the card: the knot kernel's fast
    division against IEEE division over 2^30 operand pairs, the classifier
@@ -26,7 +26,13 @@ the seconds since start:
    bit for bit on ``row_quantile_cases`` (signed zeros, all-equal rows, one
    and no valid element, +-inf, NaN without a mask, ties, envelopes) at
    q = 0, 0.1, 0.5, 1, both dtypes, three rows of 7 and rows of 229,825
-   alone (a cluster of blocks a row);
+   alone (a cluster of blocks a row); the rolling-quantile kernel against
+   ``ops/quantile.rolling_quantile_centered_plain`` bit for bit on
+   ``rolling_quantile_cases`` (NaN runs, signed zeros, all-equal rows, +-inf,
+   odd and even windows, a window of the whole row, the widest window
+   sorted in shared memory and one wider, sorted in global scratch, and a
+   384 kHz recording's default window) at three rows of 1000, two of
+   20,000, four of 181,200 and one of 229,825, both dtypes;
    the classifier and rhythm scans against ``classifier.scan_plain`` and
    ``corrections.rhythm_scan_plain`` on four one-minute recordings (rows cut
    to 0, 1, 2 and 4 peaks, a row at full capacity), float32 and float64,
@@ -62,10 +68,16 @@ the seconds since start:
    the phase-5 accuracy gates, the kernel against its plain version at the
    path's own inputs with its time, bound, plain-version time and the
    ``torch.nanquantile`` yardstick, and the card against the CPU;
-8. the default configuration (stride 1: the exact wavelet-tree floor) in
-   float64 on the vulpine recording of ``tests/golden/vulpine_oracle.npz``,
-   with both prominence backends, against the golden counts and beats (the
-   float64 scan kernels);
+8. the default configuration (stride 1: the exact floor on the
+   rolling-quantile kernel) in float64 on the vulpine recording of
+   ``tests/golden/vulpine_oracle.npz``, with both prominence backends,
+   against the golden counts and beats (the float64 scan kernels); then
+   phase 4's batch at the ``exact-f64`` configuration (stride 1, float64):
+   launch counts, both floors' calls against the plain version, and the
+   final floor's input tiled to (256, 181,200) float64, a float32 row of
+   229,825 and a float32 row of 768,000 at a 384 kHz recording's default
+   window, each timed beside ``rolling_bound`` and the plain version, and
+   the float32 rows beside ``torch.nanquantile`` over unfolded windows;
 9. the host path at full width: phase 4's 16 recordings written as int16
    302 Hz WAVs through ``host_batch.analyze_files_batched`` at phase 4's
    configuration with every artifact (launch counts, the phase-5 accuracy
@@ -414,6 +426,71 @@ def row_quantile_cases(n: int, seed: int = 0) -> list:
             ("envelope_prefix", smooth, prefix)]
 
 
+def rolling_quantile_cases(n: int, rows: int, seed: int = 0) -> list:
+    """(name, x, window, qs, min_periods) cases of the rolling-quantile
+    kernel: ``rows`` float64 rows of length ``n`` (cast by the caller) with
+    a window, the quantiles to take and ``min_periods``.  NaN prefix, suffix
+    and interior runs; -0.0 and +0.0 ties (a float tie broken by position,
+    not by the sortable key); all-equal rows; valid +-inf beside NaN; heavy
+    ties in an odd window; a window of the whole row and more (on rows of
+    up to 20,000, as the sorted-window reference's cost grows with n times
+    the window); the widest window whose tiles are sorted in shared memory
+    and one sample wider (sorted in global scratch); the default window of
+    a 384 kHz recording (12,800 samples at 1,280 Hz); and trough
+    interpolations with a NaN head and a masked tail, the exact floor's own
+    input, at the floor's window."""
+    from bpm_analysis_tpu_torch.ops.cuda import rolling_quantile_kernel
+
+    rng = np.random.RandomState(seed)
+    idx = np.arange(n)
+
+    def smooth():
+        return np.stack([np.abs(np.convolve(rng.randn(n + 30), np.ones(31) / 31, mode="valid"))
+                         for _ in range(rows)]) + 0.05
+
+    runs = smooth()
+    for r in range(rows):
+        runs[r, :rng.randint(1, max(2, n // 20))] = np.nan
+        runs[r, n - rng.randint(1, max(2, n // 15)):] = np.nan
+        for _ in range(3):
+            a = rng.randint(0, n)
+            runs[r, a:a + rng.randint(1, 4600)] = np.nan
+    zeros = rng.choice([-0.0, 0.0, 0.0, -0.0, 1e-3, -1e-3, 2.0], size=(rows, n))
+    equal = np.stack([np.full(n, (2.5, -0.0, -3.0)[r % 3]) for r in range(rows)])
+    infs = rng.randn(rows, n) * 100
+    infs[rng.rand(rows, n) < 0.05] = -np.inf
+    infs[rng.rand(rows, n) < 0.05] = np.inf
+    infs[rng.rand(rows, n) < 0.05] = np.nan
+    ties = np.round(rng.randn(rows, n) * 3)
+    widest = rolling_quantile_kernel.shared_window()
+    edges = smooth()
+    edges[:, :rng.randint(1, max(2, n // 10))] = np.nan
+    troughs = np.empty((rows, n))
+    for r in range(rows):
+        knots = np.unique(np.concatenate([[0, n - 1], rng.randint(0, n, size=max(2, n // 150))]))
+        troughs[r] = np.interp(idx, knots, np.abs(rng.randn(len(knots))) * 5 + 20)
+        troughs[r, :knots[min(2, len(knots) - 1)]] = np.nan
+        troughs[r, n - r * (n // 9):] = np.nan
+    cases = [("nan_runs", runs, 3020, (0.2,), 3),
+             ("signed_zeros", zeros, 3021, (0.0, 0.5), 1),
+             ("all_equal", equal, 3020, (0.2,), 3),
+             ("infinities", infs, 64, (0.0, 0.2, 1.0), 1),
+             ("odd_window_ties", ties, 7, (0.5,), 3)]
+    if n <= 20_000:
+        cases.append(("window_ge_n", smooth(), n + 7, (0.2,), 3))
+    cases += [("widest_shared", edges, widest, (0.2,), 3),
+              ("past_shared", edges, widest + 1, (0.2,), 3),
+              ("wide_window", runs, 12_800, (0.2,), 3),
+              ("trough_interp", troughs, 3020, (0.0, 0.2, 1.0), 3)]
+    return cases
+
+
+def rolling_bound(x) -> float:
+    """Least time of one rolling quantile of ``x`` (B, n): each sample read
+    once and each output written once at HBM bandwidth, in ms."""
+    return 2 * x.numel() * x.element_size() / PEAK_BYTES_S * 1e3
+
+
 def same_values(got: torch.Tensor, exp: torch.Tensor) -> bool:
     """Bit for bit, NaN equal to NaN whatever its payload."""
     nan = torch.isnan(exp)
@@ -542,20 +619,24 @@ def strided_bound(x, window, stride) -> tuple:
 
 
 def nanquantile_rows(x, window, q, min_periods, stride):
-    """The library yardstick for the strided quantile: ``torch.nanquantile``
-    over each row's unfolded windows (its input is capped at 2^24 elements,
-    so one row per call), NaN below ``min_periods``."""
+    """The library yardstick for the strided and the exact rolling
+    quantile: ``torch.nanquantile`` over each row's unfolded windows (its
+    input is capped at 2^24 elements, so one row, and at most 2^24 window
+    elements, per call), NaN below ``min_periods``."""
     from bpm_analysis_tpu_torch.ops.rolling import centered_bounds
 
     left, right = centered_bounds(window)
+    per = max(1, (1 << 24) // window)
     out = []
     for r in range(x.shape[0]):
         w = torch.nn.functional.pad(x[r:r + 1], (left, right),
-                                    value=float("nan")).unfold(1, window, stride)
-        val = torch.nanquantile(w, q, dim=-1)
-        out.append(torch.where((~torch.isnan(w)).sum(-1) >= min_periods, val,
-                               torch.full_like(val, float("nan"))))
-    return torch.cat(out)
+                                    value=float("nan")).unfold(1, window, stride)[0]
+        for c0 in range(0, w.shape[0], per):
+            wc = w[c0:c0 + per]
+            val = torch.nanquantile(wc, q, dim=-1)
+            out.append(torch.where((~torch.isnan(wc)).sum(-1) >= min_periods, val,
+                                   torch.full_like(val, float("nan"))))
+    return torch.cat(out).reshape(x.shape[0], -1)
 
 
 def scan_bound(x, want_trace: bool, clock_hz: float) -> tuple:
@@ -915,11 +996,12 @@ def check_filter_cases(dev) -> float:
 def reset_launches():
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
                                                  quantile_kernel, rhythm_kernel,
-                                                 row_quantile_kernel)
+                                                 rolling_quantile_kernel, row_quantile_kernel)
 
     knot_kernel.launches = 0
     quantile_kernel.launches = 0
     row_quantile_kernel.launches = 0
+    rolling_quantile_kernel.launches = 0
     classify_kernel.launches = 0
     rhythm_kernel.launches = 0
     filter_kernel.launches = 0
@@ -930,11 +1012,12 @@ def reset_launches():
 def read_launches() -> dict:
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
                                                  quantile_kernel, rhythm_kernel,
-                                                 row_quantile_kernel)
+                                                 rolling_quantile_kernel, row_quantile_kernel)
 
     return {"knot_quantile": knot_kernel.launches,
             "strided_quantile": quantile_kernel.launches,
             "row_quantile": row_quantile_kernel.launches,
+            "rolling_quantile": rolling_quantile_kernel.launches,
             "classify_scan": classify_kernel.launches,
             "rhythm_scan": rhythm_kernel.launches,
             "block_filter": filter_kernel.launches}
@@ -942,11 +1025,17 @@ def read_launches() -> dict:
 
 # Launches of one batch through preprocess and analyze_batch: the filtfilt's
 # two passes, two classifier passes, one rhythm correction, the noise
-# floor's quantile kernel twice, and the row quantile four times (three
-# global quantiles of the noise floor, the raw peaks' prominence).
+# floor's quantile kernel twice (the knot or strided kernel at stride 64, the
+# rolling-quantile kernel at stride 1: draft and final floor), and the row
+# quantile four times (three global quantiles of the noise floor, the raw
+# peaks' prominence).
 PER_BATCH = {"classify_scan": 2, "rhythm_scan": 1, "row_quantile": 4}
-AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, **PER_BATCH, "block_filter": 2}
-PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, **PER_BATCH, "block_filter": 2}
+AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, "rolling_quantile": 0,
+                 **PER_BATCH, "block_filter": 2}
+PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, "rolling_quantile": 0,
+                   **PER_BATCH, "block_filter": 2}
+EXACT_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 0, "rolling_quantile": 2,
+                  **PER_BATCH, "block_filter": 2}
 
 
 def run_main_path(batch_np, cfg, device):
@@ -983,8 +1072,8 @@ def build_all() -> dict:
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("knot_quantile", "strided_quantile", "row_quantile", "classify_scan",
-             "rhythm_scan", "block_filter")
+    names = ("knot_quantile", "strided_quantile", "row_quantile", "rolling_quantile",
+             "classify_scan", "rhythm_scan", "block_filter")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         return dict(zip(names, pool.map(timed, names)))
 
@@ -1052,6 +1141,107 @@ def check_row_quantile_cases(dev) -> None:
                               f"{tuple(xb.shape)} {dtype} q={q}: {got} vs {exp}")
     log(f"  row-quantile kernel vs plain: every case equal at (3, 7) and (1, 229825), "
         f"float32 and float64 (split at B=1: {row_quantile_kernel.split(1)} blocks a row)")
+
+
+ROLLING_SHAPES = ((3, 1000), (2, 20_000), (4, 181_200), (1, 229_825))
+
+
+def check_rolling_quantile_cases(dev) -> float:
+    """The rolling-quantile kernel against its plain version, bit for bit,
+    on every case at each of its quantiles, in both dtypes, at three short
+    rows (one tile), two rows of 20,000 (a whole-row window sorted in global
+    scratch), four rows of the exact cell's width and the serial cell's
+    envelope alone; one launch a call.  Returns the worst absolute
+    error."""
+    from bpm_analysis_tpu_torch.ops import quantile
+    from bpm_analysis_tpu_torch.ops.cuda import rolling_quantile_kernel
+
+    worst = 0.0
+    for bsz, n in ROLLING_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            for name, x, window, qs, mp in rolling_quantile_cases(n, bsz):
+                xt = torch.from_numpy(x).to(dev, dtype)
+                for q in qs:
+                    before = rolling_quantile_kernel.launches
+                    got = rolling_quantile_kernel.rolling_quantile_centered(xt, window, q, mp)
+                    exp = quantile.rolling_quantile_centered_plain(xt, window, q, mp)
+                    check(rolling_quantile_kernel.launches == before + 1,
+                          f"rolling-quantile kernel: {name} launched "
+                          f"{rolling_quantile_kernel.launches - before}, expected 1")
+                    worst = max(worst, float((got - exp).abs().nan_to_num(0.0).max()))
+                    check(same_values(got, exp),
+                          f"rolling-quantile kernel differs from its plain version on {name} "
+                          f"{tuple(xt.shape)} {dtype} window {window} q={q}")
+    log(f"  rolling-quantile kernel vs plain: every case equal at {ROLLING_SHAPES}, float32 "
+        f"and float64; windows up to {rolling_quantile_kernel.shared_window()} in shared "
+        f"memory, wider ones in global scratch")
+    return worst
+
+
+def time_rolling_quantile(card, batch, err: float) -> dict:
+    """The exact floor's kernel on phase 4's recordings in float64 at
+    stride 1 (the ``exact-f64`` cell's configuration): launch counts, the
+    draft and final floors' calls against the plain version, then the
+    final floor's input tiled to the cell's (256, 181,200) float64, a
+    float32 row of the serial cell's envelope length (the default
+    configuration's B=1) and a float32 row of a ten-minute 384 kHz
+    recording's envelope (768,000 samples at 1,280 Hz) at its default
+    window of 12,800 (sorted in global scratch), each timed beside its
+    bound and the plain version, and the float32 rows beside
+    ``torch.nanquantile`` over unfolded windows.  Returns the kernel
+    table's row."""
+    from bpm_analysis_tpu_torch.ops import quantile
+    from bpm_analysis_tpu_torch.ops.cuda import rolling_quantile_kernel
+
+    cfg = engine_config()
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, noise_quantile_stride=1,
+                                                  dtype="float64"))
+    captured = []
+    _, launches = counted_run(batch.astype(np.float64), cfg, {
+        (rolling_quantile_kernel, "rolling_quantile_centered"): captured})
+    log(f"kernel launches on the exact path (stride 1, float64): {launches}")
+    check(launches == EXACT_LAUNCHES, f"expected {EXACT_LAUNCHES}, got {launches}")
+    kernel = rolling_quantile_kernel.rolling_quantile_centered
+    plain = quantile.rolling_quantile_centered_plain
+    for label, (a, k) in zip(("draft floor", "final floor"), captured):
+        check(same_values(kernel(*a, **k), plain(*a, **k)),
+              f"rolling-quantile kernel differs from its plain version on the {label}")
+    (x16, window, q, mp), _ = captured[-1]
+    shapes = {}
+    rows32 = x16.reshape(-1).to(torch.float32)
+    for label, x, w in (
+            ("exact cell", x16.repeat(-(-256 // x16.shape[0]), 1)[:256].contiguous(), window),
+            ("B=1", rows32[None, :229_825].contiguous(), window),
+            ("384 kHz", rows32[None, :768_000].contiguous(), 12_800)):
+        got = kernel(x, w, q, mp)
+        exp = plain(x, w, q, mp)
+        check(same_values(got, exp),
+              f"rolling-quantile kernel differs from its plain version at {tuple(x.shape)}")
+        ms = cuda_ms(lambda: kernel(x, w, q, mp), 10)
+        plain_ms = cuda_ms(lambda: plain(x, w, q, mp), 1)
+        library_ms = None
+        if x.dtype == torch.float32:
+            library_ms = cuda_ms(lambda: nanquantile_rows(x, w, q, mp, 1), 1)
+        bound_ms = rolling_bound(x)
+        plan = rolling_quantile_kernel.tile_plan(
+            w, x.shape[0], x.shape[1],
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        shapes[label] = {"shape": list(x.shape), "dtype": str(x.dtype), "window": w,
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "log_union_tile": list(plan)}
+        library = "" if library_ms is None else f", torch.nanquantile {library_ms:.3f} ms"
+        log(f"rolling-quantile kernel at {tuple(x.shape)} {x.dtype}, window {w}, q={q} "
+            f"(union 2^{plan[0]}, tile {plan[1]}): {ms:.4f} ms, bound {bound_ms:.4f} ms by "
+            f"bytes ({100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms{library}, "
+            f"equal, on {card}")
+    cell = shapes["exact cell"]
+    return {"name": "rolling_quantile", "route": "cuda",
+            "source": "bpm_analysis_tpu_torch/csrc/rolling_quantile.cu",
+            "replaces": "bpm_analysis_tpu/ops/quantile.py rolling_quantile_centered",
+            "launches": launches["rolling_quantile"], "max_abs_err": err,
+            "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "b1": shapes["B=1"],
+            "wide_window": shapes["384 kHz"]}
 
 
 def row_quantile_bound(x, valid) -> float:
@@ -1164,10 +1354,9 @@ def check_vulpine_default(card, dev):
         launches = read_launches()
         log(f"  vulpine, default config, prominence_backend={backend!r}, float64: "
             f"{seconds:.2f}s on {card}; {got}; launches {launches}")
-        check(launches == {"knot_quantile": 0, "strided_quantile": 0, **PER_BATCH,
-                           "block_filter": 0},
-              f"{backend}: expected the float64 scan and row-quantile kernels only, "
-              f"got {launches}")
+        check(launches == {**EXACT_LAUNCHES, "block_filter": 0},
+              f"{backend}: expected the float64 scan, rolling- and row-quantile kernels "
+              f"only, got {launches}")
         check(got["trough_count"] == len(oracle["sanitized_troughs"]),
               f"{backend}: trough count {got['trough_count']}")
         check(got["raw_peak_count"] == len(oracle["all_raw_peaks"]),
@@ -1811,7 +2000,7 @@ def main() -> int:
     from bpm_analysis_tpu_torch.ops import quantile
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
                                                  quantile_kernel, rhythm_kernel,
-                                                 row_quantile_kernel)
+                                                 rolling_quantile_kernel, row_quantile_kernel)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1837,8 +2026,8 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     builds = build_all()
-    for wrapper in (knot_kernel, quantile_kernel, row_quantile_kernel, classify_kernel,
-                    rhythm_kernel, filter_kernel):
+    for wrapper in (knot_kernel, quantile_kernel, row_quantile_kernel,
+                    rolling_quantile_kernel, classify_kernel, rhythm_kernel, filter_kernel):
         wrapper._library()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
@@ -1864,6 +2053,7 @@ def main() -> int:
     knot_err = check_knot_cases(dev)
     strided_err = check_strided_cases(dev)
     check_row_quantile_cases(dev)
+    rolling_err = check_rolling_quantile_cases(dev)
     classify_err, rhythm_err = check_scan_cases(dev)
     filter_err = check_filter_cases(dev)
     log(f"phase 3 kernels vs plain: ok (knot rtol {RTOL} atol {ATOL}; strided rtol "
@@ -2068,6 +2258,7 @@ def main() -> int:
 
     # ---- 8. the default configuration on the vulpine recording -------------
     check_vulpine_default(card, dev)
+    rolling_row = time_rolling_quantile(card, batch, rolling_err)
     log("phase 8 default configuration: ok")
 
     # ---- 9. the host path at full width -------------------------------------
@@ -2112,7 +2303,7 @@ def main() -> int:
         "replaces": "bpm_analysis_tpu/ops/quantile.py:146",
         "launches": launches["row_quantile"],
         **q_rows["no mask"],
-    }, {
+    }, rolling_row, {
         "name": "classify_scan",
         "route": "cuda",
         "source": "bpm_analysis_tpu_torch/csrc/classify_scan.cu",

@@ -1,6 +1,6 @@
-"""The CUDA kernels (knot quantile, strided quantile, row quantile,
-classifier scan, rhythm scan, blocked filter and its phase entry points)
-against their plain versions, on the card.
+"""The CUDA kernels (knot quantile, strided quantile, row quantile, rolling
+quantile, classifier scan, rhythm scan, blocked filter and its phase entry
+points) against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The machine
 with the card has no JAX, so run these without the suite's conftest (which
@@ -17,7 +17,8 @@ import test_torch_filter_batch
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
 from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                             quantile_kernel, rhythm_kernel, row_quantile_kernel)
+                                             quantile_kernel, rhythm_kernel,
+                                             rolling_quantile_kernel, row_quantile_kernel)
 
 CASES = chip_smoke.kernel_cases()
 FILTER_CASES = chip_smoke.filter_cases()
@@ -372,6 +373,56 @@ def test_row_quantile_wrapper_rejects_what_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             row_quantile_kernel.quantile_exact(bad, 0.2, v)
     assert row_quantile_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("shape", chip_smoke.ROLLING_SHAPES, ids=str)
+def test_rolling_quantile_kernel_matches_plain_version_and_reference(shape, dtype):
+    """Every case of ``chip_smoke.rolling_quantile_cases`` at each of its
+    quantiles: bit for bit (NaN equal to NaN) against the plain version, one
+    launch a call inside ``bpm.rolling_exact`` at every window (those past
+    ``shared_window`` sorted in global scratch); and equal to the sorted
+    windows of ``bench_port/reference/exact_floor.py``, whose unstable sort
+    leaves only the sign of a selected zero open."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bench_port.reference import exact_floor
+
+    bsz, n = shape
+    for name, x, window, qs, mp in chip_smoke.rolling_quantile_cases(n, bsz):
+        xt = torch.from_numpy(x).to("cuda", dtype)
+        for q in qs:
+            before = rolling_quantile_kernel.launches
+            got = tq.rolling_quantile_centered(xt, window, q, mp)
+            torch.cuda.synchronize()
+            assert rolling_quantile_kernel.launches == before + 1, name
+            exp = tq.rolling_quantile_centered_plain(xt, window, q, mp)
+            assert chip_smoke.same_values(got, exp), (name, window, q)
+            ref = exact_floor.rolling_quantile_centered(xt, window, q, mp, block=4096)
+            torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} window {window} q={q}")
+
+
+@pytest.mark.gpu
+def test_rolling_quantile_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    """Bad dtypes, shapes, parameters and a CPU tensor raise before a
+    launch; a strided tensor is taken as its contiguous copy."""
+    x = torch.ones((2, 400), dtype=torch.float32, device="cuda")
+    before = rolling_quantile_kernel.launches
+    for bad in (x.to(torch.int32), x.half(), x[0], x.cpu()):
+        with pytest.raises(ValueError):
+            rolling_quantile_kernel.rolling_quantile_centered(bad, 64, 0.2, 3)
+    for window, q in ((0, 0.2), (64, 1.5), (64, float("nan"))):
+        with pytest.raises(ValueError):
+            rolling_quantile_kernel.rolling_quantile_centered(x, window, q, 3)
+    assert rolling_quantile_kernel.launches == before
+    strided = torch.randn((2, 800), device="cuda")[:, ::2]
+    assert chip_smoke.same_values(
+        rolling_quantile_kernel.rolling_quantile_centered(strided, 64, 0.2, 3),
+        tq.rolling_quantile_centered_plain(strided.contiguous(), 64, 0.2, 3))
 
 
 @pytest.mark.gpu
