@@ -4,7 +4,8 @@ Port of ``bpm_analysis_tpu/models/classifier.py`` (reference
 ``PeakClassifier``, bpm_analysis.py:64-330, and its confidence helpers
 :1120-1250).  The JAX ``lax.scan`` becomes, on the card, the CUDA kernel
 ``csrc/classify_scan.cu`` (one block per recording, through
-``ops/cuda/classify_kernel``) and, on the CPU, its plain version
+``ops/cuda/classify_kernel``; :func:`classify_scan` makes the choice and
+builds the kernel's constant tables) and, on the CPU, its plain version
 :func:`scan_plain`: a Python loop over slots whose state is (B,)-shaped, so
 every recording of the batch advances in lockstep:
 
@@ -38,6 +39,11 @@ from ..ops.indexing import arange, take
 from .. import types
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+# The classify kernel's constant tables on the card, by (sample_rate, cfg,
+# dtype, device); the last 16 configurations are kept.
+_kernel_tables: dict = {}
+# Trace fields that are slot inputs, passed through as they are.
+SLOT_FIELDS = ("deviation", "s2_s1_ratio", "s1_s2_ratio", "interval_sec", "implied_bpm")
 
 
 class ClassifierTrace(NamedTuple):
@@ -412,6 +418,128 @@ def scan_plain(x: ScanInputs, sample_rate: int, cfg: AnalyzerConfig,
     return peak_class, ClassifierTrace(**stacked)
 
 
+def _interp_table(interp: Interp, fp=None) -> np.ndarray:
+    """One Interp's row of the classify kernel's table (``enum Table``), in float64
+    holding values of the working dtype.  ``fp`` (low, span) replaces the
+    constant values for the base interp, whose values vary with the belief."""
+    row = np.zeros(classify_kernel.TABLE_WIDTH)
+    k = interp.k
+    if not 2 <= k <= classify_kernel.MAX_KNOTS:
+        raise ValueError(f"the classify kernel takes 2-{classify_kernel.MAX_KNOTS} interp "
+                         f"knots, got {k}")
+    xp = interp.xp_t.cpu().numpy()
+    if not (np.diff(xp) >= 0).all():
+        raise ValueError(f"the classify kernel's segment count needs sorted knots, got {xp}")
+    table = interp.table.cpu().numpy().astype(np.float64)
+    row[0] = k
+    row[1:1 + k] = xp
+    row[9:9 + k - 1] = table[1]
+    if interp.dx0 is not None:
+        row[17:17 + k - 1] = interp.dx0.cpu().numpy()
+    if fp is None:
+        row[25:25 + k - 1] = table[2]
+        row[33:33 + k - 1] = table[3]
+        row[41], row[42] = interp.f_ends
+    else:
+        low, span = fp
+        row[25:25 + k] = low
+        row[33:33 + k] = span
+    return row
+
+
+def kernel_constants(sample_rate: int, cfg, dtype: torch.dtype):
+    """(float table, int table) for the classify kernel, as numpy arrays: the
+    scalars of its ``enum Const`` and the five Interp tables, every float
+    rounded to the working dtype exactly as :func:`scan_plain` rounds the
+    Python number at its operation (the Interp tables taken from
+    :class:`Interp` itself); the codes of its ``enum Int``, from ``types``."""
+    p, r = cfg.pairing, cfg.rhythm
+    npd = _NP_DTYPE[dtype]
+    scalars = [
+        sample_rate, p.stability_history_window, 0.5, p.kickstart_check_threshold,
+        p.kickstart_override_ratio, p.contractility_bpm_low,
+        p.contractility_bpm_high - p.contractility_bpm_low, p.penalty_amount_min,
+        p.penalty_amount_max - p.penalty_amount_min, 1.0, 2.0, 60.0,
+        p.s1_s2_interval_rr_fraction, p.s1_s2_interval_cap_sec,
+        p.interval_penalty_start_factor, p.interval_penalty_full_factor, 1e-9,
+        p.interval_max_penalty, p.pairing_confidence_threshold, r.lone_s1_rhythm_weight,
+        r.lone_s1_amplitude_weight, r.lone_s1_confidence_threshold,
+        r.lone_s1_forward_check_pct, 1 - r.belief_learning_rate, r.belief_learning_rate,
+        r.belief_max_change_per_beat, r.min_bpm, r.max_bpm, 0.0, float("nan")]
+    head = np.zeros(classify_kernel.SCALARS)
+    head[:len(scalars)] = np.asarray(scalars, np.float64).astype(npd)
+
+    def interp(xp, fp):
+        return Interp(xp, fp, dtype, "cpu")
+
+    curve_low = np.asarray(p.curve_low, npd)
+    curve_span = np.asarray(p.curve_high, npd) - curve_low
+    tables = [
+        _interp_table(interp(p.deviation_points, None), fp=(curve_low, curve_span)),
+        _interp_table(interp((0.0, 1.0), (p.stability_confidence_floor,
+                                          p.stability_confidence_ceiling))),
+        _interp_table(interp((p.contractility_bpm_low, p.contractility_bpm_high),
+                             (p.s2_s1_ratio_low_bpm, p.s2_s1_ratio_high_bpm))),
+        _interp_table(interp(r.rhythm_dev_points, r.rhythm_conf_curve)),
+        _interp_table(interp(r.amp_ratio_points, r.amp_conf_curve)),
+    ]
+    floats = np.concatenate([head, *tables]).astype(npd)
+    hist = p.stability_history_window
+    if not 1 <= hist <= classify_kernel.MAX_HIST:
+        raise ValueError(f"the classify kernel keeps a ring of 1-{classify_kernel.MAX_HIST} "
+                         f"slots, got {hist}")
+    ints = np.asarray([
+        types.UNCLASSIFIED, types.S1_PAIRED, types.S2_PAIRED, types.LONE_S1_VALIDATED,
+        types.LONE_S1_CASCADE, types.LONE_S1_LAST, types.NOISE, types.LONE_OK,
+        types.LONE_FIRST_BEAT, types.LONE_REJ_CONFIDENCE, types.LONE_REJ_FORWARD,
+        hist, r.cascade_reset_trigger_count, int(p.enable_interval_penalty)], np.int32)
+    return floats, ints
+
+
+def constant_divisors(sample_rate: int, cfg) -> np.ndarray:
+    """The float32 constant divisors of the classify kernel's chain, which
+    ``classify_kernel.division_mismatches`` takes: the BPM span, the
+    sample rate, 2 and the dx of each segment of the three interps on the
+    chain (ratio, rhythm, amplitude)."""
+    floats, _ = kernel_constants(sample_rate, cfg, torch.float32)
+    out = [floats[6], floats[0], floats[10]]                # C_BPM_SPAN, C_SR, C_TWO
+    width = classify_kernel.TABLE_WIDTH
+    for which in (2, 3, 4):                                  # I_RATIO, I_RHYTHM, I_AMP
+        row = floats[classify_kernel.SCALARS + which * width:][:width]
+        k = int(row[0])
+        out += [dx for dx, dx0 in zip(row[9:9 + k - 1], row[17:17 + k - 1]) if not dx0]
+    return np.asarray(out, np.float32)
+
+
+def classify_scan(x: ScanInputs, n: int, sample_rate: int, cfg: AnalyzerConfig,
+                  want_trace: bool = True):
+    """(peak_class (B, capacity) int32, the trace or None) of the
+    carry-dependent loop over ``x``, whose positions lie in [0, n]: the CUDA
+    kernel ``csrc/classify_scan.cu`` for CUDA tensors, with its constant
+    tables built once a configuration and kept on the card, and
+    :func:`scan_plain` for CPU tensors."""
+    dev = x.deviation.device
+    if dev.type == "cpu":
+        return scan_plain(x, sample_rate, cfg, want_trace=want_trace)
+    dtype = x.deviation.dtype
+    key = (sample_rate, cfg, dtype, str(dev))
+    if key not in _kernel_tables:
+        if len(_kernel_tables) >= 16:
+            _kernel_tables.pop(next(iter(_kernel_tables)))
+        floats, ints = kernel_constants(sample_rate, cfg, dtype)
+        _kernel_tables[key] = (torch.as_tensor(floats, device=dev),
+                               torch.as_tensor(ints, device=dev))
+    consts, codes = _kernel_tables[key]
+    peak_class, lone_reason, paired, fields = classify_kernel.classify_scan(
+        x, n, consts, codes, cfg.compat.kickstart_effective, want_trace=want_trace)
+    if not want_trace:
+        return peak_class, None
+    traced = dict(zip(classify_kernel.KERNEL_FIELDS, fields))
+    traced.update({f: getattr(x, f) for f in SLOT_FIELDS})
+    return peak_class, ClassifierTrace(peak_class=peak_class, paired=paired,
+                                       lone_reason=lone_reason, **traced)
+
+
 def classify(
     envelope: torch.Tensor,
     floor: torch.Tensor,
@@ -479,8 +607,7 @@ def classify(
         interval_sec=interval_all, s2_s1_ratio=s2s1_all, s1_s2_ratio=s1s2_all,
         strength=strengths.contiguous(), boost=boost_all, implied_bpm=implied_all,
         flags=flags)
-    peak_class, trace = classify_kernel.classify_scan(inputs, n, sample_rate, cfg,
-                                                      want_trace=want_trace)
+    peak_class, trace = classify_scan(inputs, n, sample_rate, cfg, want_trace=want_trace)
 
     is_beat = ((peak_class == types.S1_PAIRED)
                | (peak_class == types.LONE_S1_VALIDATED)

@@ -5,8 +5,9 @@ Port of ``bpm_analysis_tpu/models/corrections.py``.
 Stage 4 — ``correct_peaks_by_rhythm`` (bpm_analysis.py:1257-1306): greedy
 left-to-right conflict resolution against the median RR; sequential by
 construction, so a scan over candidate slots carrying the last accepted
-peak (per row): the CUDA kernel ``csrc/rhythm_scan.cu`` on the card, its
-plain version :func:`rhythm_scan_plain` on the CPU.  Skipped for < 5 peaks.
+peak (per row), :func:`rhythm_scan`: the CUDA kernel
+``csrc/rhythm_scan.cu`` on the card, its plain version
+:func:`rhythm_scan_plain` on the CPU.  Skipped for < 5 peaks.
 
 Stage 5 — ``_fix_rhythmic_discontinuities`` (bpm_analysis.py:1309-1412),
 iterated until an iteration corrects nothing, at most ``max_iterations``
@@ -69,6 +70,16 @@ def rhythm_scan_plain(pos: torch.Tensor, amp: torch.Tensor, count: torch.Tensor,
     return torch.stack(written, dim=1), torch.stack(victim, dim=1).to(torch.int32)
 
 
+def rhythm_scan(pos: torch.Tensor, amp: torch.Tensor, count: torch.Tensor,
+                threshold: torch.Tensor, n: int, sample_rate: int):
+    """Stage 4's greedy scan (:func:`rhythm_scan_plain`'s result) over
+    positions in [0, n]: the CUDA kernel ``csrc/rhythm_scan.cu`` for CUDA
+    tensors, :func:`rhythm_scan_plain` for CPU tensors."""
+    if amp.device.type == "cpu":
+        return rhythm_scan_plain(pos, amp, count, threshold, sample_rate)
+    return rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n, sample_rate)
+
+
 def rhythm_correction(positions: torch.Tensor, count: torch.Tensor,
                       envelope: torch.Tensor, sample_rate: int,
                       cfg: AnalyzerConfig):
@@ -88,9 +99,9 @@ def rhythm_correction(positions: torch.Tensor, count: torch.Tensor,
     median_rr = series.masked_median(rr, rr_valid)
     threshold = median_rr * cfg.correction.rr_correction_threshold_pct
 
-    written, victim = rhythm_kernel.rhythm_scan(
-        pos.to(torch.int32), amp.contiguous(), count.to(torch.int32),
-        threshold.contiguous(), n, sample_rate)
+    written, victim = rhythm_scan(pos.to(torch.int32), amp.contiguous(),
+                                  count.to(torch.int32), threshold.contiguous(), n,
+                                  sample_rate)
     written[:, 0] = count > 0
     unseated = scatter_drop(cap, victim, True, False, torch.bool)
     kept = written & ~unseated

@@ -42,7 +42,6 @@ from ..ops import find_peaks as fp
 from ..ops import knot_quantile as kq
 from ..ops import quantile as q
 from ..ops import series
-from ..ops.cuda import knot_kernel, quantile_kernel, row_quantile_kernel
 from ..ops.indexing import arange, take
 from . import envelope as envm
 
@@ -91,7 +90,7 @@ def dynamic_noise_floor(
               fp.distance_capacity_bound(n, max(min_dist, 1)))
     valid, env_m = envm.edge_held(envelope, n_valid)
 
-    trough_prom = row_quantile_kernel.quantile_exact(
+    trough_prom = q.quantile_exact(
         envelope, cfg.features.trough_prominence_quantile, valid=valid)
     if extrema is not None:
         # Extrema were built on env == -(-env_m): the envelope's minima ARE
@@ -140,11 +139,10 @@ def dynamic_noise_floor(
     # --- final floor from sanitized troughs, and the fallback ladder --------
     sc = sane_count.long()[:, None]
     floor, all_nan = final_of(sane_pos, sane_amp, sane_count, sc > 2)
-    static_all_nan = row_quantile_kernel.quantile_exact(
+    static_all_nan = q.quantile_exact(
         envelope, ncfg.all_nan_fallback_quantile, valid=valid)
     floor = torch.where(all_nan, static_all_nan[:, None], floor)
-    static_few = row_quantile_kernel.quantile_exact(envelope, ncfg.noise_floor_quantile,
-                                                valid=valid)
+    static_few = q.quantile_exact(envelope, ncfg.noise_floor_quantile, valid=valid)
     few_troughs = troughs.count.long()[:, None] < 5
     floor = torch.where(few_troughs, static_few[:, None], floor)
 
@@ -192,7 +190,7 @@ def _knot_floors(envelope, troughs, t_pos, t_amp, n_valid, cfg, min_dist,
         if use_kernel:
             # float32 contract, as the TPU kernel: amplitudes go in as
             # float32 and the anchors come back in the envelope's dtype.
-            return knot_kernel.knot_quantile_anchors(
+            return kq.knot_quantile_anchors_f32(
                 pos.to(torch.int32).contiguous(),
                 amp.to(torch.float32).contiguous(),
                 count.to(torch.int32).contiguous(), n, window,
@@ -234,7 +232,7 @@ def _dense_floors(envelope, troughs, t_pos, t_amp, valid, n_valid, cfg,
         if path == "strided_kernel":
             # float32 contract, as the TPU kernel; the anchors are expanded
             # in the envelope's dtype.
-            return quantile_kernel.rolling_quantile_strided_cuda(
+            return q.rolling_quantile_strided_f32(
                 d, window, qv, min_periods=3, stride=stride)
         if path == "strided":
             return q.rolling_quantile_centered_strided(

@@ -22,8 +22,7 @@ import torch
 from ..config import AnalyzerConfig
 from ..device import as_tensor, resolve_device
 from ..ops import find_peaks as fp
-from ..ops import series
-from ..ops.cuda import row_quantile_kernel
+from ..ops import quantile, series
 from ..ops.indexing import arange, take
 from ..utils.profiling import span
 from . import analytics, classifier, corrections, noise_floor
@@ -61,8 +60,8 @@ def raw_peaks(envelope: torch.Tensor, floor: torch.Tensor, sample_rate: int,
     distance NMS; otherwise the dense finder runs on the edge-held envelope
     with its shared ``env_tables`` (built here when None)."""
     valid, env_m = envm.edge_held(envelope, n_valid)
-    prom = row_quantile_kernel.quantile_exact(envelope, cfg.features.peak_prominence_quantile,
-                                            valid=valid)
+    prom = quantile.quantile_exact(envelope, cfg.features.peak_prominence_quantile,
+                                   valid=valid)
     n = envelope.shape[1]
     dist = int(cfg.features.min_peak_distance_sec * sample_rate)
     cap = min(cfg.runtime.max_raw_peaks, fp.distance_capacity_bound(n, dist))

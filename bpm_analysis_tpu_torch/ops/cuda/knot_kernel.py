@@ -2,10 +2,9 @@
 
 Counterpart of ``bpm_analysis_tpu/ops/pallas/knot_kernel.py``: the batched
 anchors of the knot-domain rolling quantile
-(``ops/knot_quantile.rolling_quantile_knots`` semantics), float32.  A CUDA
-tensor launches the kernel or raises; a CPU tensor takes the plain version.
-``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+(``ops/knot_quantile.rolling_quantile_knots`` semantics), float32, of
+CUDA tensors.  ``ops/knot_quantile.knot_quantile_anchors_f32`` calls it for
+CUDA tensors and runs the plain version for CPU ones.
 """
 from __future__ import annotations
 
@@ -13,32 +12,16 @@ import ctypes
 
 import torch
 
-from .. import knot_quantile as kq
+from ...kernels import build
 from ..rolling import centered_bounds
 
-launches = 0
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ...kernels import build
-
-        lib = build.load("knot_quantile")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.knot_quantile_anchors.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,                     # pos, val, count, hi_cap, out
-            i32, i32, i32, i32, i32, i32, i32, i32,      # batch .. nseg
-            ctypes.c_float, i32, ptr]                    # q, min_periods, stream
-        lib.knot_quantile_anchors.restype = i32
-        lib.knot_quantile_check_division.argtypes = [
-            ctypes.c_ulonglong, ctypes.c_uint, ptr, ptr]  # n, seed, mismatches, stream
-        lib.knot_quantile_check_division.restype = i32
-        lib.knot_quantile_error_string.argtypes = [i32]
-        lib.knot_quantile_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = build.Library("knot_quantile", {
+    "knot_quantile_anchors": [
+        build.PTR, build.PTR, build.PTR, build.PTR, build.PTR,  # pos, val, count, hi_cap, out
+        *[build.I32] * 8,                                       # batch .. nseg
+        ctypes.c_float, build.I32],                             # q, min_periods
+    "knot_quantile_check_division": [
+        ctypes.c_ulonglong, ctypes.c_uint, build.PTR]})         # n, seed, mismatches
 
 
 def knot_quantile_anchors(
@@ -55,48 +38,30 @@ def knot_quantile_anchors(
 ) -> torch.Tensor:
     """(B, ceil(n / stride)) float32 anchors of the centered rolling
     quantile of each row's knot interpolation."""
-    if knot_pos.device.type == "cpu":
-        return kq.rolling_quantile_knots(
-            knot_pos, knot_val, count, n, window, q, min_periods=min_periods,
-            stride=stride, min_spacing=min_spacing, n_valid=n_valid,
-            dtype=torch.float32)
-    if knot_pos.device.type != "cuda":
-        raise ValueError(f"unsupported device {knot_pos.device}")
+    device = knot_pos.device
+    if device.type != "cuda":
+        raise ValueError(f"expected CUDA tensors, got ones on {device}")
     bsz, cap = knot_pos.shape
-    for name, t, dtype, shape in (("knot_pos", knot_pos, torch.int32, (bsz, cap)),
-                                  ("knot_val", knot_val, torch.float32, (bsz, cap)),
-                                  ("count", count, torch.int32, (bsz,))):
-        if t.device != knot_pos.device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape} on {knot_pos.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    build.check_tensor("knot_pos", knot_pos, torch.int32, (bsz, cap), device)
+    build.check_tensor("knot_val", knot_val, torch.float32, (bsz, cap), device)
+    build.check_tensor("count", count, torch.int32, (bsz,), device)
     if cap <= 0 or bsz > 65535:
         raise ValueError(f"unsupported shape {(bsz, cap)}")
     if n >= 1 << 24:
         raise ValueError("positions must stay below 2^24 (exact in float32)")
     if n_valid is None:
-        hi_cap = torch.full((bsz,), n, dtype=torch.int32, device=knot_pos.device)
+        hi_cap = torch.full((bsz,), n, dtype=torch.int32, device=device)
     else:
-        hi_cap = torch.clamp(n_valid.to(device=knot_pos.device, dtype=torch.int32),
-                             max=n).contiguous()
+        hi_cap = torch.clamp(n_valid.to(device=device, dtype=torch.int32), max=n).contiguous()
     left, right = centered_bounds(window)
     n_anchor = -(-n // stride)
     nseg = min(cap + 1, window // max(min_spacing, 1) + 3)
-    out = torch.empty((bsz, n_anchor), dtype=torch.float32, device=knot_pos.device)
+    out = torch.empty((bsz, n_anchor), dtype=torch.float32, device=device)
     if bsz == 0 or n_anchor == 0:
         return out
-    lib = _library()
-    stream = torch.cuda.current_stream(knot_pos.device).cuda_stream
-    rc = lib.knot_quantile_anchors(
-        knot_pos.data_ptr(), knot_val.data_ptr(), count.data_ptr(),
-        hi_cap.data_ptr(), out.data_ptr(), bsz, cap, n, left, right, stride,
-        n_anchor, nseg, ctypes.c_float(q), min_periods, stream)
-    if rc != 0:
-        msg = lib.knot_quantile_error_string(rc).decode()
-        raise RuntimeError(f"knot_quantile kernel launch failed: {msg} ({rc})")
-    global launches
-    launches += 1
+    LIBRARY.launch("knot_quantile_anchors", device, knot_pos.data_ptr(), knot_val.data_ptr(),
+                   count.data_ptr(), hi_cap.data_ptr(), out.data_ptr(), bsz, cap, n, left,
+                   right, stride, n_anchor, nseg, ctypes.c_float(q), min_periods)
     return out
 
 
@@ -105,10 +70,6 @@ def division_mismatches(n_pairs: int, seed: int = 0) -> int:
     fast-division range give a quotient that differs from IEEE division
     (div.rn.f32) on the card; the kernel is bit-equal only if this is 0."""
     mismatches = torch.zeros(1, dtype=torch.int64, device="cuda")
-    lib = _library()
-    stream = torch.cuda.current_stream(mismatches.device).cuda_stream
-    rc = lib.knot_quantile_check_division(n_pairs, seed, mismatches.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.knot_quantile_error_string(rc).decode()
-        raise RuntimeError(f"knot_quantile division check failed: {msg} ({rc})")
+    LIBRARY.check_division("knot_quantile_check_division", mismatches.device, n_pairs, seed,
+                           mismatches.data_ptr())
     return int(mismatches.item())

@@ -7,8 +7,6 @@ of a (B, n) float32 or float64 CUDA batch, exact, at every sample, in one
 launch a call inside the span ``bpm.rolling_exact``, at every window.
 ``ops/quantile.rolling_quantile_centered`` calls it for a CUDA tensor and
 runs the plain version, ``rolling_quantile_centered_plain``, for a CPU one.
-``launches`` counts kernel launches, so a run can show that its path went
-through the kernel.
 
 The kernel sorts the union of a tile's windows, ``tile + window - 1``
 positions padded to a power of two ``2**log_union``; :func:`tile_plan`
@@ -27,10 +25,8 @@ import math
 
 import torch
 
+from ...kernels import build
 from ...utils.profiling import span
-
-launches = 0
-_lib = None
 
 MIN_LOG_UNION = 8           # csrc kMinLogUnion: one warp of 8 positions a thread
 MAX_SHARED_LOG_UNION = 13   # csrc kMaxSharedLogUnion: 1024 threads, in shared memory
@@ -39,25 +35,14 @@ MIN_TILE = 256              # the fewest outputs a block is given
 SCRATCH_BYTES = 1 << 30     # the global scratch a call may take; at least one block's
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from ...kernels import build
-
-        lib = build.load("rolling_quantile")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, real in (("rolling_quantile_f32", ctypes.c_float),
-                           ("rolling_quantile_f64", ctypes.c_double)):
-            fn = getattr(lib, name)
-            # x, out, B, n, window, q, min_periods, tile, log_union, blocks, scratch, stream
-            fn.argtypes = [ptr, ptr, i32, i32, i32, real, i32, i32, i32, i32, ptr, ptr]
-            fn.restype = i32
-        lib.rolling_quantile_scratch_bytes.argtypes = [i32, i32]
-        lib.rolling_quantile_scratch_bytes.restype = ctypes.c_longlong
-        lib.rolling_quantile_error_string.argtypes = [i32]
-        lib.rolling_quantile_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = build.Library(
+    "rolling_quantile",
+    # x, out, B, n, window, q, min_periods, tile, log_union, blocks, scratch
+    {f"rolling_quantile_{suffix}": [build.PTR, build.PTR, build.I32, build.I32, build.I32,
+                                    real, build.I32, build.I32, build.I32, build.I32,
+                                    build.PTR]
+     for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double))},
+    queries={"rolling_quantile_scratch_bytes": ([build.I32, build.I32], ctypes.c_longlong)})
 
 
 def shared_window() -> int:
@@ -121,8 +106,7 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
         return out
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     log_union, tile = tile_plan(window, bsz, n, sms)
-    lib = _library()
-    per_block = lib.rolling_quantile_scratch_bytes(log_union, x.element_size())
+    per_block = LIBRARY.load().rolling_quantile_scratch_bytes(log_union, x.element_size())
     jobs = bsz * -(-n // tile)
     scratch = None
     if per_block:
@@ -131,16 +115,11 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
     else:
         blocks = jobs
     if x.dtype == torch.float32:
-        fn, qv = lib.rolling_quantile_f32, ctypes.c_float(q)
+        entry, qv = "rolling_quantile_f32", ctypes.c_float(q)
     else:
-        fn, qv = lib.rolling_quantile_f64, ctypes.c_double(q)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+        entry, qv = "rolling_quantile_f64", ctypes.c_double(q)
     with span("bpm.rolling_exact"):
-        rc = fn(x.data_ptr(), out.data_ptr(), bsz, n, window, qv, min_periods, tile,
-                log_union, blocks, None if scratch is None else scratch.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.rolling_quantile_error_string(rc).decode()
-        raise RuntimeError(f"rolling_quantile kernel launch failed: {msg} ({rc})")
-    global launches
-    launches += 1
+        LIBRARY.launch(entry, x.device, x.data_ptr(), out.data_ptr(), bsz, n, window, qv,
+                       min_periods, tile, log_union, blocks,
+                       None if scratch is None else scratch.data_ptr())
     return out

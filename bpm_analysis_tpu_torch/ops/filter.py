@@ -16,11 +16,11 @@ association, from the whole shape, so a recording's filtered signal would
 depend on the batch it is filtered in; here each row's output is a
 function of that row alone, bit for bit, on any device.  On the card
 :func:`lfilter` is the CUDA kernel ``csrc/block_filter.cu`` (the same
-products in the same order); :func:`lfilter_plain` is its plain version.
-:class:`BlockFilter`'s pieces serve the sequence-sharded relay too
-(``parallel/seqshard.py``), which runs them through the kernel's phase
-entry points (``ops/cuda/filter_kernel.contributions`` / ``carry_scan`` /
-``apply``) on the card.
+products in the same order, through ``ops/cuda/filter_kernel``);
+:func:`lfilter_plain` is its plain version.  :class:`BlockFilter`'s pieces
+serve the sequence-sharded relay too (``parallel/seqshard.py``) through
+:func:`contributions`, :func:`carry_scan` and :func:`apply`: the pieces
+themselves on the CPU, the kernel's phase entry points on the card.
 """
 from __future__ import annotations
 
@@ -32,6 +32,9 @@ import torch
 from ..device import upload
 from .cuda import filter_kernel
 from .indexing import arange, take
+
+_KEEP = 16              # filter designs whose tables stay on the card
+_designs: dict = {}     # (b, a, L, dtype, device) -> BlockFilter, for the kernel
 
 
 def _butter_analog_poles(order: int) -> np.ndarray:
@@ -178,12 +181,53 @@ class BlockFilter(NamedTuple):
         return self.b0 * X + ordered_matmul(S0, self.GT) + toeplitz_apply(X, self.h)
 
 
+def _design(b: np.ndarray, a: np.ndarray, L: int, dtype, device) -> BlockFilter:
+    """The :class:`BlockFilter` of (b, a) at block length ``L``, built once
+    and kept (the last few designs), so a kernel call costs the launch
+    alone."""
+    key = (np.asarray(b, np.float64).tobytes(), np.asarray(a, np.float64).tobytes(), L,
+           dtype, str(device))
+    bf = _designs.get(key)
+    if bf is None:
+        if len(_designs) >= _KEEP:
+            _designs.pop(next(iter(_designs)))
+        bf = _designs[key] = BlockFilter.build(b, a, L, dtype, device)
+    return bf
+
+
 def lfilter(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi: torch.Tensor,
             block: int = 256) -> torch.Tensor:
     """scipy ``lfilter(b, a, x[r], zi=zi[r])[0]`` for every row of ``x``
     (B, n), with ``zi`` (B, m): the CUDA kernel ``csrc/block_filter.cu`` on
     the card, :func:`lfilter_plain` on the CPU."""
-    return filter_kernel.lfilter(b, a, x, zi, block)
+    if x.device.type == "cpu":
+        return lfilter_plain(b, a, x, zi, block)
+    L = min(block, max(8, x.shape[-1]))
+    return filter_kernel.lfilter(_design(b, a, L, x.dtype, x.device), x, zi)
+
+
+def contributions(bf: BlockFilter, X: torch.Tensor) -> torch.Tensor:
+    """``bf.contributions(X)``: on the CPU the piece itself, on the card the
+    filter kernel's phase entry point, bit-equal to it."""
+    if X.device.type == "cpu":
+        return bf.contributions(X)
+    return filter_kernel.contributions(bf, X)
+
+
+def carry_scan(bf: BlockFilter, C: torch.Tensor, s: torch.Tensor):
+    """``bf.carry_scan(C, s)``: on the CPU the piece itself, on the card the
+    filter kernel's phase entry point, bit-equal to it."""
+    if C.device.type == "cpu":
+        return bf.carry_scan(C, s)
+    return filter_kernel.carry_scan(bf, C, s)
+
+
+def apply(bf: BlockFilter, X: torch.Tensor, S0: torch.Tensor) -> torch.Tensor:
+    """``bf.apply(X, S0)``: on the CPU the piece itself, on the card the
+    filter kernel's phase entry point, bit-equal to it."""
+    if X.device.type == "cpu":
+        return bf.apply(X, S0)
+    return filter_kernel.apply(bf, X, S0)
 
 
 def lfilter_plain(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi: torch.Tensor,

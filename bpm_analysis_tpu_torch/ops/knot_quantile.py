@@ -9,17 +9,19 @@ order statistic comes from a bit-prefix descent over the float's sortable
 key space with one closed-form count pass per step — the dense series is
 never built.
 
-This is the plain PyTorch version of the CUDA kernel in
-``csrc/knot_quantile.cu`` (wrapper ``ops/cuda/knot_kernel.py``): the CPU
-path and the reference the kernel is held against on the card.  It repeats
-the kernel's arithmetic operation for operation (no fused multiply-adds on
-either side).
+:func:`rolling_quantile_knots` is the plain PyTorch version of the CUDA
+kernel in ``csrc/knot_quantile.cu`` (wrapper ``ops/cuda/knot_kernel.py``):
+the CPU path and the reference the kernel is held against on the card.  It
+repeats the kernel's arithmetic operation for operation (no fused
+multiply-adds on either side).  :func:`knot_quantile_anchors_f32` makes the
+CPU-or-card choice for the kernel's float32 contract.
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import upload
+from .cuda import knot_kernel
 from .indexing import arange, take
 from .quantile import _key_info, _key_to_float, _signed
 from .rolling import centered_bounds
@@ -156,6 +158,22 @@ def rolling_quantile_knots(
     anchors = torch.cat(out, dim=1)
     return torch.where(count.long()[:, None] > 0, anchors,
                        torch.full_like(anchors, float("nan")))
+
+
+def knot_quantile_anchors_f32(knot_pos: torch.Tensor, knot_val: torch.Tensor,
+                              count: torch.Tensor, n: int, window: int, q: float,
+                              min_periods: int = 1, stride: int = 8, min_spacing: int = 1,
+                              n_valid=None) -> torch.Tensor:
+    """:func:`rolling_quantile_knots`'s anchors in float32, as the TPU kernel
+    computes them, from ``knot_pos`` (B, cap) int32, ``knot_val`` (B, cap)
+    float32 and ``count`` (B,) int32: the plain version for CPU tensors, the
+    knot-quantile kernel (``ops/cuda/knot_kernel``) for CUDA ones."""
+    if knot_pos.device.type == "cpu":
+        return rolling_quantile_knots(
+            knot_pos, knot_val, count, n, window, q, min_periods=min_periods,
+            stride=stride, min_spacing=min_spacing, n_valid=n_valid, dtype=torch.float32)
+    return knot_kernel.knot_quantile_anchors(knot_pos, knot_val, count, n, window, q,
+                                             min_periods, stride, min_spacing, n_valid)
 
 
 def anchors_at(anchors: torch.Tensor, query: torch.Tensor, n: int,

@@ -1,15 +1,20 @@
 """Exact order statistics and anchor-grid helpers for the noise floor.
 
 Port of ``bpm_analysis_tpu/ops/quantile.py``: sortable float keys, the
-radix-bisection ``select_kth``/``quantile_exact_plain`` (pandas/numpy
-linear-interpolation quantiles without a sort; on a card the row-quantile
-kernel, ``ops/cuda/row_quantile_kernel``, computes the same bits), the dense
-rolling quantiles (the exact ``rolling_quantile_centered``, whose plain
-version is a wavelet tree and which a card computes with
-``ops/cuda/rolling_quantile_kernel``, and the strided row-select
-``rolling_quantile_centered_strided``), the anchor expansion
-``interp_anchors`` and the NaN fills.  Every function works on the rows of
-a (B, n) batch.
+row quantile ``quantile_exact`` (pandas/numpy linear-interpolation
+quantiles without a sort), the dense rolling quantiles (the exact
+``rolling_quantile_centered``, the strided row-select
+``rolling_quantile_centered_strided`` and its float32 raw-bit form
+``rolling_quantile_strided_f32``), the anchor expansion ``interp_anchors``
+and the NaN fills.  Every function works on the rows of a (B, n) batch.
+
+Three of them have a CUDA kernel, and each makes its CPU-or-card choice
+here, beside its plain version: ``quantile_exact`` (the radix-bisection
+``quantile_exact_plain``, or ``ops/cuda/row_quantile_kernel``),
+``rolling_quantile_centered`` (the wavelet tree
+``rolling_quantile_centered_plain``, or
+``ops/cuda/rolling_quantile_kernel``) and ``strided_quantile_anchors_f32``
+(``strided_quantile_anchors_f32_plain``, or ``ops/cuda/quantile_kernel``).
 
 Keys are held in signed integer tensors of the float's width (int32 for
 float32, int64 for float64) carrying the unsigned key's bit pattern; only
@@ -21,9 +26,11 @@ import torch
 
 from ..device import upload
 from ..utils.profiling import span
+from .cuda import quantile_kernel, rolling_quantile_kernel, row_quantile_kernel
 from .indexing import arange, take
 from .rolling import centered_bounds
 
+INF_BITS = 0x7F800000    # +inf: float32 raw bits at or above it are missing
 _INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 
@@ -86,11 +93,23 @@ def select_kth(x: torch.Tensor, valid: torch.Tensor, k: torch.Tensor) -> torch.T
     return _key_to_float(prefix, x.dtype)
 
 
+def quantile_exact(x: torch.Tensor, q: float, valid=None) -> torch.Tensor:
+    """(B,) ``np.quantile(x[r][valid[r]], q)`` (linear interpolation) per row
+    of ``x`` (B, n), a contiguous float32 or float64 tensor, in its dtype;
+    NaN for a row with no valid element.  ``valid`` is a contiguous bool
+    mask of ``x``'s shape, or None for ``~isnan(x)``.  A CPU tensor takes
+    :func:`quantile_exact_plain`; any other launches the row-quantile kernel
+    (``ops/cuda/row_quantile_kernel``, bit-equal to the plain version)."""
+    if x.device.type == "cpu":
+        row_quantile_kernel.check_inputs(x, valid)
+        return quantile_exact_plain(x, q, valid)
+    return row_quantile_kernel.quantile_exact(x, q, valid)
+
+
 def quantile_exact_plain(x: torch.Tensor, q: float, valid=None) -> torch.Tensor:
     """``np.quantile(x[r][valid[r]], q)`` (linear interpolation) per row of
     (B, n) ``x`` without sorting; NaN for a row with no valid element.  The
-    plain version of the row-quantile kernel, which the CPU runs
-    (``ops/cuda/row_quantile_kernel.quantile_exact``)."""
+    plain version of the row-quantile kernel (:func:`quantile_exact`)."""
     if valid is None:
         valid = ~torch.isnan(x)
     n = valid.long().sum(dim=1)
@@ -185,8 +204,6 @@ def rolling_quantile_centered(x: torch.Tensor, window: int, q: float,
     (``ops/cuda/rolling_quantile_kernel``, bit-equal to the plain version)."""
     if x.device.type == "cpu":
         return rolling_quantile_centered_plain(x, window, q, min_periods)
-    from .cuda import rolling_quantile_kernel
-
     return rolling_quantile_kernel.rolling_quantile_centered(x, window, q, min_periods)
 
 
@@ -329,6 +346,47 @@ def rolling_quantile_centered_strided(x: torch.Tensor, window: int, q: float,
     them."""
     anchors = strided_quantile_anchors(x, window, q, min_periods, stride, chunk)
     return interp_anchors(anchors, x.shape[1], stride)
+
+
+def strided_quantile_anchors_f32(x: torch.Tensor, window: int, q: float,
+                                 min_periods: int = 1, stride: int = 8) -> torch.Tensor:
+    """(B, ceil(n / stride)) float32 anchors of the centered rolling
+    quantile of each row of ``x`` (B, n), a contiguous float32 tensor, with
+    the TPU strided kernel's contract: the raw float32 bits are the keys, so
+    a sample is missing unless it is a non-negative finite value (NaN,
+    +inf, negatives and -0.0 are missing).  A CPU tensor takes
+    :func:`strided_quantile_anchors_f32_plain`; any other launches the
+    strided-quantile kernel (``ops/cuda/quantile_kernel``)."""
+    if x.device.type == "cpu":
+        quantile_kernel.check_inputs(x, window, q, stride)
+        return strided_quantile_anchors_f32_plain(x, window, q, min_periods, stride)
+    return quantile_kernel.strided_quantile_anchors(x, window, q, min_periods, stride)
+
+
+def strided_quantile_anchors_f32_plain(x: torch.Tensor, window: int, q: float,
+                                       min_periods: int = 1, stride: int = 8,
+                                       chunk: int = 512) -> torch.Tensor:
+    """The strided-quantile kernel's plain version: :func:`strided_quantile_anchors`
+    at float32 with the raw-bit validity (a sample whose bits, as unsigned,
+    are not below +inf's is missing).  For valid values, which are
+    non-negative, the raw bits and the sortable keys order alike, so the
+    selection and the float32 interpolation are the kernel's, operation for
+    operation."""
+    x = x.to(torch.float32).contiguous()
+    bits = x.view(torch.int32)
+    x = torch.where((bits >= 0) & (bits < INF_BITS), x, torch.full_like(x, float("nan")))
+    return strided_quantile_anchors(x, window, q, min_periods, stride, chunk)
+
+
+def rolling_quantile_strided_f32(x: torch.Tensor, window: int, q: float,
+                                 min_periods: int = 1, stride: int = 8) -> torch.Tensor:
+    """Dense (B, n) strided rolling quantile of a non-negative series of any
+    float dtype (counterpart of ``rolling_quantile_strided_pallas``): the
+    float32 anchors of :func:`strided_quantile_anchors_f32` of ``x`` cast to
+    float32, expanded by :func:`interp_anchors` in ``x``'s dtype."""
+    anchors = strided_quantile_anchors_f32(x.to(torch.float32).contiguous(), window, q,
+                                           min_periods, stride)
+    return interp_anchors(anchors.to(x.dtype), x.shape[1], stride)
 
 
 def interp_anchors(anchors: torch.Tensor, n: int, stride: int) -> torch.Tensor:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.cuda import filter_kernel
+from ..ops import filter as filt
 from ..ops.filter import (BlockFilter, _df2t_matrices, butter_bandpass, lfilter_zi,
                           ordered_matmul)
 from ..ops.indexing import arange
@@ -132,9 +132,10 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
     first and last ``padlen + 1`` samples are broadcast from the edge ranks
     (a masked all-reduce sum), and every rank integrates the short
     extension recurrences itself to get the entry states.  The block pieces
-    are the filter kernel's phase entry points (``ops/cuda/filter_kernel``)
-    on the card and ``BlockFilter``'s plain methods on the CPU; each is
-    bit-equal to the plain one, so the result is the same on both."""
+    are ``ops.filter.contributions`` / ``carry_scan`` / ``apply``: the filter
+    kernel's phase entry points on the card and ``BlockFilter``'s plain
+    methods on the CPU; each is bit-equal to the plain one, so the result is
+    the same on both."""
     b, a = butter_bandpass(order, low_hz, high_hz, fs)
     padlen = 3 * max(len(a), len(b))
     x = block if batched else block[None]
@@ -179,17 +180,17 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
         mine = None
         for src, dst in zip(order_[:-1], order_[1:]):
             if idx == src:
-                mine = filter_kernel.carry_scan(bf, C, entry)
+                mine = filt.carry_scan(bf, C, entry)
             passed = all_gather(mesh, mine[0] if idx == src else torch.zeros_like(s_first),
                                 "sp")
             if idx == dst:
                 entry = passed[src]
         if idx == order_[-1]:
-            mine = filter_kernel.carry_scan(bf, C, entry)
+            mine = filt.carry_scan(bf, C, entry)
         return mine
 
     def local_apply(X, S0):
-        return filter_kernel.apply(bf, X, S0).reshape(bsz, blk)
+        return filt.apply(bf, X, S0).reshape(bsz, blk)
 
     # --- forward pass -------------------------------------------------------
     head = edge_broadcast(x[:, :padlen + 1], 0)               # x[0 .. padlen]
@@ -197,7 +198,7 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
     front_ext = 2 * head[:, :1] - head[:, 1:].flip(1)
     s_fwd0, _ = steps(zi * front_ext[:, :1], front_ext)
     X = x.reshape(bsz, nb, L).contiguous()
-    s_exit, S0 = relay(filter_kernel.contributions(bf, X), s_fwd0, reverse=False)
+    s_exit, S0 = relay(filt.contributions(bf, X), s_fwd0, reverse=False)
     y = local_apply(X, S0)
 
     # --- forward-filter the back extension (every rank) ---------------------
@@ -207,7 +208,7 @@ def sequence_sharded_bandpass_filtfilt(mesh: Mesh, block: torch.Tensor, fs: floa
     # --- backward pass over the reversed signal -----------------------------
     s_bwd0, _ = steps(zi * y_back[:, -1:], y_back.flip(1))
     Xr = y.flip(1).reshape(bsz, nb, L)
-    _, S0r = relay(filter_kernel.contributions(bf, Xr), s_bwd0, reverse=True)
+    _, S0r = relay(filt.contributions(bf, Xr), s_bwd0, reverse=True)
     z = local_apply(Xr, S0r).flip(1)
     return z if batched else z[0]
 

@@ -28,15 +28,6 @@ from .. import types
 from . import trace as trace_mod
 
 
-def _asof(times: np.ndarray, values: np.ndarray, t: float, tol: float = 0.0) -> float:
-    """As-of lookup with a half-sample tolerance: device times are float32
-    while event times are exact float64 sample ratios, so an event's own
-    beat time can land an epsilon below its float32 counterpart (the
-    reference's sample-grid nearest-merge is immune to this)."""
-    i = np.searchsorted(times, t + tol, side="right") - 1
-    return float(values[i]) if i >= 0 else float("nan")
-
-
 def build_events(result, cfg, sample_rate: int, debug=None):
     """Time-sorted event list: (time, kind, amp, debug_string).
     ``debug``: optionally a precomputed ``trace.debug_strings`` dict

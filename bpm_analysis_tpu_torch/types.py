@@ -71,18 +71,6 @@ LONE_REJ_CONFIDENCE = 2   # confidence < threshold (counts toward cascade)
 LONE_REJ_FORWARD = 3      # forward-check failed (does NOT count)
 
 
-def class_name(code: int, for_log: bool = False) -> str:
-    """Display string for a class code.
-
-    The classifier writes "Noise" as the class prefix in debug strings
-    (bpm_analysis.py:302) while the plot legend uses "Noise/Rejected"; pass
-    ``for_log=True`` for the debug-string spelling.
-    """
-    if for_log and code == NOISE:
-        return NOISE_LOG_NAME
-    return CLASS_NAMES[int(code)]
-
-
 def labels_to_codes(labels) -> np.ndarray:
     """Map reference debug-string class prefixes to integer codes (host)."""
     rev = {v: k for k, v in CLASS_NAMES.items() if v}

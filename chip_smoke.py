@@ -17,7 +17,7 @@ the seconds since start:
    on the cases of tests/test_knot_kernel.py, knots 2-5 samples apart (more
    segments a window than a lane group holds in registers), all-flat knots
    and engine-shaped knots; the strided-quantile kernel against
-   ``ops/cuda/quantile_kernel.plain_anchors`` on the cases of
+   ``ops/quantile.strided_quantile_anchors_f32_plain`` on the cases of
    tests/test_pallas_quantile.py, a masked tail, a short row, windows of
    6037 and 24575 keys, the tiled design's edges (a ragged last tile, a row
    shorter than one tile, all-equal and all-missing windows, heavy ties,
@@ -41,8 +41,8 @@ the seconds since start:
    unsorted rows, one run over a whole row and rows of three of its tiles
    (``rhythm_cases``);
    the blocked filter against ``ops/filter.lfilter_plain`` and each of its
-   phase entry points (``filter_kernel.contributions`` / ``carry_scan`` /
-   ``apply``) against its ``BlockFilter`` piece (short rows, a ragged last
+   phase entry points (``ops/filter.contributions`` / ``carry_scan`` /
+   ``apply`` on the card) against its ``BlockFilter`` piece (short rows, a ragged last
    block, 2-6 states, both dtypes, the main path's length, one long row);
 4. the main path at full width: 16 ten-minute recordings (302 Hz,
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
@@ -846,12 +846,13 @@ def scan_config(dtype: str, kickstart: bool):
 
 def scan_calls(batch, cfg) -> tuple:
     """Drive the main path on the card once and return the arguments of its
-    (classify_scan calls, rhythm_scan calls)."""
-    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, rhythm_kernel
+    (``classifier.classify_scan`` calls, ``corrections.rhythm_scan`` calls),
+    each of which launched its kernel."""
+    from bpm_analysis_tpu_torch.models import classifier, corrections
 
     c_calls, r_calls = [], []
-    counted_run(batch, cfg, {(classify_kernel, "classify_scan"): c_calls,
-                             (rhythm_kernel, "rhythm_scan"): r_calls})
+    counted_run(batch, cfg, {(classifier, "classify_scan"): c_calls,
+                             (corrections, "rhythm_scan"): r_calls})
     return c_calls, r_calls
 
 
@@ -863,7 +864,7 @@ def check_scan_cases(dev) -> tuple:
     Returns the worst (classify, rhythm) max abs error."""
     from bpm_analysis_tpu_torch import synth
     from bpm_analysis_tpu_torch.models import classifier, corrections
-    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, rhythm_kernel
+    from bpm_analysis_tpu_torch.ops.cuda import rhythm_kernel
 
     batch = np.stack([synth._quantize_int16(synth.synth_recording(s)[:SR * 60])
                       for s in range(4)]).astype(np.float32)
@@ -875,7 +876,7 @@ def check_scan_cases(dev) -> tuple:
             (x, n, sr, _), _ = c_calls[-1]
             for name, xc in scan_input_cases(x, n):
                 for want_trace in (False, True):
-                    got = classify_kernel.classify_scan(xc, n, sr, cfg, want_trace=want_trace)
+                    got = classifier.classify_scan(xc, n, sr, cfg, want_trace=want_trace)
                     exp = classifier.scan_plain(xc, sr, cfg, want_trace=want_trace)
                     torch.cuda.synchronize()
                     err = trace_error(got, exp)
@@ -943,12 +944,11 @@ def filter_cases():
 
 
 def filter_phase_errors(b, a, x: torch.Tensor, zi: torch.Tensor) -> dict:
-    """Max abs error of each phase entry point of the filter kernel
-    (``filter_kernel.contributions`` / ``carry_scan`` / ``apply``) against its
+    """Max abs error of each phase entry point (``ops/filter.contributions`` /
+    ``carry_scan`` / ``apply``, on the card the filter kernel's) against its
     ``BlockFilter`` piece on the same inputs, on ``x``'s device; inf where
     they are not equal bit for bit."""
     from bpm_analysis_tpu_torch.ops import filter as filt
-    from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
 
     bsz, n = x.shape
     L = min(256, max(8, n))
@@ -957,11 +957,11 @@ def filter_phase_errors(b, a, x: torch.Tensor, zi: torch.Tensor) -> dict:
     X = torch.nn.functional.pad(x, (0, nb * L - n)).reshape(bsz, nb, L).contiguous()
     C = bf.contributions(X)
     s_exit, S0 = bf.carry_scan(C, zi)
-    pairs = {"contributions": (filter_kernel.contributions(bf, X), C)}
-    s_got, S0_got = filter_kernel.carry_scan(bf, C, zi)
+    pairs = {"contributions": (filt.contributions(bf, X), C)}
+    s_got, S0_got = filt.carry_scan(bf, C, zi)
     pairs["carry_scan"] = (torch.stack([s_got, S0_got[:, -1]]), torch.stack([s_exit, S0[:, -1]]))
     pairs["carry_ins"] = (S0_got, S0)
-    pairs["apply"] = (filter_kernel.apply(bf, X, S0), bf.apply(X, S0))
+    pairs["apply"] = (filt.apply(bf, X, S0), bf.apply(X, S0))
     torch.cuda.synchronize()
     return {name: (float((g - e).abs().max()) if torch.equal(g, e) else float("inf"))
             for name, (g, e) in pairs.items()}
@@ -972,12 +972,11 @@ def check_filter_cases(dev) -> float:
     the plain version on the card: equal bit for bit.  Returns the max abs
     error (0)."""
     from bpm_analysis_tpu_torch.ops import filter as filt
-    from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
 
     worst = 0.0
     for name, b, a, x, zi in filter_cases():
         xt, zt = torch.from_numpy(x).to(dev), torch.from_numpy(zi).to(dev)
-        got = filter_kernel.lfilter(b, a, xt, zt)
+        got = filt.lfilter(b, a, xt, zt)
         exp = filt.lfilter_plain(b, a, xt, zt)
         torch.cuda.synchronize()
         err = float((got - exp).abs().max())
@@ -993,34 +992,24 @@ def check_filter_cases(dev) -> float:
     return worst
 
 
+# The kernel libraries, by the names their launches are counted under
+# (``kernels/build.launches``); the block filter's phase entry points are
+# counted apart, under FILTER_PHASES.
+KERNELS = ("knot_quantile", "strided_quantile", "row_quantile", "rolling_quantile",
+           "classify_scan", "rhythm_scan", "block_filter")
+FILTER_PHASES = ("block_filter_contributions", "block_filter_carry", "block_filter_apply")
+
+
 def reset_launches():
-    from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 quantile_kernel, rhythm_kernel,
-                                                 rolling_quantile_kernel, row_quantile_kernel)
+    from bpm_analysis_tpu_torch.kernels import build
 
-    knot_kernel.launches = 0
-    quantile_kernel.launches = 0
-    row_quantile_kernel.launches = 0
-    rolling_quantile_kernel.launches = 0
-    classify_kernel.launches = 0
-    rhythm_kernel.launches = 0
-    filter_kernel.launches = 0
-    for name in filter_kernel.phase_launches:
-        filter_kernel.phase_launches[name] = 0
+    build.reset_launches()
 
 
-def read_launches() -> dict:
-    from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 quantile_kernel, rhythm_kernel,
-                                                 rolling_quantile_kernel, row_quantile_kernel)
+def read_launches(names=KERNELS) -> dict:
+    from bpm_analysis_tpu_torch.kernels import build
 
-    return {"knot_quantile": knot_kernel.launches,
-            "strided_quantile": quantile_kernel.launches,
-            "row_quantile": row_quantile_kernel.launches,
-            "rolling_quantile": rolling_quantile_kernel.launches,
-            "classify_scan": classify_kernel.launches,
-            "rhythm_scan": rhythm_kernel.launches,
-            "block_filter": filter_kernel.launches}
+    return {name: build.launches[name] for name in names}
 
 
 # Launches of one batch through preprocess and analyze_batch: the filtfilt's
@@ -1072,10 +1061,8 @@ def build_all() -> dict:
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("knot_quantile", "strided_quantile", "row_quantile", "rolling_quantile",
-             "classify_scan", "rhythm_scan", "block_filter")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        return dict(zip(names, pool.map(timed, names)))
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(timed, KERNELS)))
 
 
 def check_knot_cases(dev) -> float:
@@ -1102,13 +1089,14 @@ def check_knot_cases(dev) -> float:
 
 
 def check_strided_cases(dev) -> float:
+    from bpm_analysis_tpu_torch.ops import quantile
     from bpm_analysis_tpu_torch.ops.cuda import quantile_kernel
 
     worst_err = 0.0
     for name, x, window, stride, q, mp in strided_kernel_cases():
         xt = torch.from_numpy(x).to(dev)
         got = quantile_kernel.strided_quantile_anchors(xt, window, q, mp, stride)
-        exp = quantile_kernel.plain_anchors(xt, window, q, mp, stride)
+        exp = quantile.strided_quantile_anchors_f32_plain(xt, window, q, mp, stride)
         torch.cuda.synchronize()
         err, rel, ok = compare(got, exp, rtol=STRIDED_RTOL, atol=0.0)
         worst_err = max(worst_err, err)
@@ -1153,6 +1141,7 @@ def check_rolling_quantile_cases(dev) -> float:
     scratch), four rows of the exact cell's width and the serial cell's
     envelope alone; one launch a call.  Returns the worst absolute
     error."""
+    from bpm_analysis_tpu_torch.kernels import build
     from bpm_analysis_tpu_torch.ops import quantile
     from bpm_analysis_tpu_torch.ops.cuda import rolling_quantile_kernel
 
@@ -1162,12 +1151,12 @@ def check_rolling_quantile_cases(dev) -> float:
             for name, x, window, qs, mp in rolling_quantile_cases(n, bsz):
                 xt = torch.from_numpy(x).to(dev, dtype)
                 for q in qs:
-                    before = rolling_quantile_kernel.launches
+                    before = build.launches["rolling_quantile"]
                     got = rolling_quantile_kernel.rolling_quantile_centered(xt, window, q, mp)
                     exp = quantile.rolling_quantile_centered_plain(xt, window, q, mp)
-                    check(rolling_quantile_kernel.launches == before + 1,
+                    check(build.launches["rolling_quantile"] == before + 1,
                           f"rolling-quantile kernel: {name} launched "
-                          f"{rolling_quantile_kernel.launches - before}, expected 1")
+                          f"{build.launches['rolling_quantile'] - before}, expected 1")
                     worst = max(worst, float((got - exp).abs().nan_to_num(0.0).max()))
                     check(same_values(got, exp),
                           f"rolling-quantile kernel differs from its plain version on {name} "
@@ -1713,7 +1702,7 @@ def sp_rank(x, series):
     series."""
     import torch.distributed as dist
 
-    from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
+    from bpm_analysis_tpu_torch.ops import filter as filt
     from bpm_analysis_tpu_torch.parallel import mesh as pmesh, seqshard
 
     m = pmesh.make_mesh(sp=SP_RANKS)
@@ -1744,16 +1733,16 @@ def sp_rank(x, series):
     for name, fn in runs.items():
         timed(name, fn)
         if name == "filtfilt":
-            out["phase_launches"] = dict(filter_kernel.phase_launches)
-    real = {name: getattr(filter_kernel, name) for name in out["phase_launches"]}
+            out["phase_launches"] = read_launches(FILTER_PHASES)
+    real = {name: getattr(filt, name) for name in ("contributions", "carry_scan", "apply")}
     try:
-        filter_kernel.contributions = lambda bf, X: bf.contributions(X)
-        filter_kernel.carry_scan = lambda bf, C, s: bf.carry_scan(C, s)
-        filter_kernel.apply = lambda bf, X, S0: bf.apply(X, S0)
+        filt.contributions = lambda bf, X: bf.contributions(X)
+        filt.carry_scan = lambda bf, C, s: bf.carry_scan(C, s)
+        filt.apply = lambda bf, X, S0: bf.apply(X, S0)
         timed("filtfilt_plain_pieces", runs["filtfilt"])
     finally:
         for name, fn in real.items():
-            setattr(filter_kernel, name, fn)
+            setattr(filt, name, fn)
     return out
 
 
@@ -2028,7 +2017,7 @@ def main() -> int:
     builds = build_all()
     for wrapper in (knot_kernel, quantile_kernel, row_quantile_kernel,
                     rolling_quantile_kernel, classify_kernel, rhythm_kernel, filter_kernel):
-        wrapper._library()
+        wrapper.LIBRARY.load()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
     from bpm_analysis_tpu_torch.kernels import build
@@ -2041,7 +2030,7 @@ def main() -> int:
     log(f"  knot kernel's fast division vs IEEE division: {mismatches} of "
         f"{4 * DIVISION_PAIRS} operand pairs differ")
     check(mismatches == 0, "the knot kernel's fast division differs from IEEE division")
-    divisors = classify_kernel.constant_divisors(SR, engine_config())
+    divisors = classifier.constant_divisors(SR, engine_config())
     c_mismatches = sum(classify_kernel.division_mismatches(
         divisors, CLASSIFY_DIVISION_NUMERATORS, seed) for seed in range(2))
     r_mismatches = classify_kernel.division_mismatches(None, DIVISION_PAIRS, 5)
@@ -2074,10 +2063,10 @@ def main() -> int:
     captured, c_captured, r_captured, f_captured, q_captured = [], [], [], [], []
     res, launches = counted_run(batch, cfg, {
         (row_quantile_kernel, "quantile_exact"): q_captured,
-        (noise_floor.knot_kernel, "knot_quantile_anchors"): captured,
-        (classify_kernel, "classify_scan"): c_captured,
-        (rhythm_kernel, "rhythm_scan"): r_captured,
-        (filter_kernel, "lfilter"): f_captured})
+        (knot_kernel, "knot_quantile_anchors"): captured,
+        (classifier, "classify_scan"): c_captured,
+        (corrections, "rhythm_scan"): r_captured,
+        (filt, "lfilter"): f_captured})
     log(f"kernel launches on the main path: {launches}")
     check(launches == AUTO_LAUNCHES, f"expected {AUTO_LAUNCHES}, got {launches}")
 
@@ -2118,7 +2107,7 @@ def main() -> int:
     # Both scan kernels against their plain versions at the main path's own
     # inputs (the preliminary and the main classifier pass, the rhythm
     # correction), each timed on its last call.
-    real_classify, real_rhythm = classify_kernel.classify_scan, rhythm_kernel.rhythm_scan
+    real_classify, real_rhythm = classifier.classify_scan, corrections.rhythm_scan
     scan_ms = {}
     for label, (a, k) in zip(("preliminary", "main"), c_captured):
         got = real_classify(*a, **k)
@@ -2153,7 +2142,7 @@ def main() -> int:
         f"{r_bound_by} ({100 * r_bound_ms / r_kernel_ms:.1f}% of it; longest run "
         f"{r_run} steps; a division every step over the capacity: {r_dividing_ms:.5f} ms), "
         f"plain {r_plain_ms:.1f} ms, on {card}")
-    real_filter = filter_kernel.lfilter
+    real_filter = filt.lfilter
     for label, (a, k) in zip(("forward", "backward"), f_captured):
         got = real_filter(*a, **k)
         exp, f_plain_ms = once_ms(lambda: filt.lfilter_plain(*a, **k))
@@ -2176,7 +2165,7 @@ def main() -> int:
     for (a, k) in q_captured:
         check(same_values(real_quantile(*a, **k), quantile.quantile_exact_plain(*a, **k)),
               "row-quantile kernel differs from its plain version on the main path")
-    (env16, q_main), _ = q_captured[-1]
+    env16, q_main = q_captured[-1][0][:2]
     x512 = env16.repeat(-(-512 // env16.shape[0]), 1)[:512].contiguous()
     q_n = x512.shape[1]
     q_prefix = (torch.arange(q_n, device=dev)[None, :]
@@ -2236,7 +2225,7 @@ def main() -> int:
     strided_call = s_captured[-1]
     for label, (a, k) in zip(("draft floor", "final floor"), s_captured):
         got = real_strided(*a, **k)
-        err, rel, ok = compare(got, quantile_kernel.plain_anchors(*a, **k),
+        err, rel, ok = compare(got, quantile.strided_quantile_anchors_f32_plain(*a, **k),
                                rtol=STRIDED_RTOL, atol=0.0)
         strided_err = max(strided_err, err)
         log(f"  strided kernel vs plain [strided-kernel path, {label}] "
@@ -2245,7 +2234,7 @@ def main() -> int:
         check(ok, f"strided kernel disagrees with its plain version on the {label}")
     x_b2, window_b2, q_b2, mp_b2, stride_b2 = a[:5]
     s_kernel_ms = cuda_ms(lambda: real_strided(*a, **k), 10)
-    s_plain_ms = cuda_ms(lambda: quantile_kernel.plain_anchors(*a, **k), 2)
+    s_plain_ms = cuda_ms(lambda: quantile.strided_quantile_anchors_f32_plain(*a, **k), 2)
     s_library_ms = cuda_ms(lambda: nanquantile_rows(x_b2, window_b2, q_b2, mp_b2,
                                                     stride_b2), 2)
     s_bound_ms, s_bound_by = strided_bound(x_b2, window_b2, stride_b2)

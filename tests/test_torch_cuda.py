@@ -14,6 +14,7 @@ import torch
 
 import chip_smoke
 import test_torch_filter_batch
+from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
 from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
@@ -55,10 +56,10 @@ def test_classify_scan_kernel_matches_plain_version(dtype, kickstart):
     (x, n, sr, _), _ = c_calls[-1]
     for name, xc in chip_smoke.scan_input_cases(x, n):
         for want_trace in (True, False):
-            before = classify_kernel.launches
-            got = classify_kernel.classify_scan(xc, n, sr, cfg, want_trace=want_trace)
+            before = build.launches["classify_scan"]
+            got = classifier.classify_scan(xc, n, sr, cfg, want_trace=want_trace)
             torch.cuda.synchronize()
-            assert classify_kernel.launches == before + 1
+            assert build.launches["classify_scan"] == before + 1
             exp = classifier.scan_plain(xc, sr, cfg, want_trace=want_trace)
             assert chip_smoke.trace_error(got, exp) == 0, (name, want_trace)
             if want_trace:
@@ -83,10 +84,10 @@ def test_rhythm_scan_kernel_matches_plain_version(dtype, case):
     (pos, amp, count, threshold, n, sr), _ = r_calls[0]
     cases = {c[0]: c[1:] for c in chip_smoke.rhythm_cases(pos, amp, count, threshold, n, sr)}
     pos, amp, count, threshold, n = cases[case]
-    before = rhythm_kernel.launches
+    before = build.launches["rhythm_scan"]
     written, victim = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n, sr)
     torch.cuda.synchronize()
-    assert rhythm_kernel.launches == before + 1
+    assert build.launches["rhythm_scan"] == before + 1
     w_exp, v_exp = corrections.rhythm_scan_plain(pos, amp, count, threshold, sr)
     assert torch.equal(written, w_exp) and torch.equal(victim, v_exp)
 
@@ -95,9 +96,11 @@ def test_rhythm_scan_kernel_matches_plain_version(dtype, case):
 def test_scan_wrappers_reject_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.models import classifier
+
     cfg, (c_calls, r_calls) = _scan_calls("float32", False)
     (x, n, sr, _), _ = c_calls[-1]
-    c_before, r_before = classify_kernel.launches, rhythm_kernel.launches
+    c_before, r_before = build.launches["classify_scan"], build.launches["rhythm_scan"]
     bad = [x._replace(positions=x.positions.long()),                  # dtype
            x._replace(deviation=x.deviation.double()),                # mixed dtypes
            x._replace(count=x.count[:-1]),                            # shape
@@ -105,9 +108,15 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take():
            x._replace(boost=x.boost.cpu())]                           # device
     for xb in bad:
         with pytest.raises(ValueError):
-            classify_kernel.classify_scan(xb, n, sr, cfg)
+            classifier.classify_scan(xb, n, sr, cfg)
     with pytest.raises(ValueError):
-        classify_kernel.classify_scan(x, 1 << 24, sr, cfg)
+        classifier.classify_scan(x, 1 << 24, sr, cfg)
+    consts, codes = classifier._kernel_tables[(sr, cfg, torch.float32, str(x.deviation.device))]
+    with pytest.raises(ValueError, match="CUDA"):                  # the wrapper: CUDA only
+        classify_kernel.classify_scan(type(x)(*[t.cpu() for t in x]), n, consts.cpu(),
+                                      codes.cpu(), False)
+    with pytest.raises(ValueError):
+        classify_kernel.classify_scan(x, n, consts[:-1], codes, False)
     (pos, amp, count, threshold, n, sr), _ = r_calls[0]
     for args in ((pos.long(), amp, count, threshold), (pos, amp.double(), count, threshold),
                  (pos, amp, count[:-1], threshold), (pos, amp.t().contiguous().t(), count,
@@ -118,7 +127,10 @@ def test_scan_wrappers_reject_what_the_kernels_do_not_take():
     for n_bad, sr_bad in ((1 << 24, sr), (n, 0), (n, -sr)):      # d* needs both
         with pytest.raises(ValueError):
             rhythm_kernel.rhythm_scan(pos, amp, count, threshold, n_bad, sr_bad)
-    assert classify_kernel.launches == c_before and rhythm_kernel.launches == r_before
+    with pytest.raises(ValueError, match="CUDA"):
+        rhythm_kernel.rhythm_scan(pos.cpu(), amp.cpu(), count.cpu(), threshold.cpu(), n, sr)
+    assert build.launches["classify_scan"] == c_before
+    assert build.launches["rhythm_scan"] == r_before
 
 
 @pytest.mark.gpu
@@ -133,10 +145,10 @@ def test_block_filter_kernel_matches_plain_version(case):
 
     _, b, a, x, zi = case
     xt, zt = torch.from_numpy(x).cuda(), torch.from_numpy(zi).cuda()
-    before = filter_kernel.launches
-    got = filter_kernel.lfilter(b, a, xt, zt)
+    before = build.launches["block_filter"]
+    got = filt.lfilter(b, a, xt, zt)
     torch.cuda.synchronize()
-    assert filter_kernel.launches == before + 1
+    assert build.launches["block_filter"] == before + 1
     assert torch.equal(got, filt.lfilter_plain(b, a, xt, zt))
 
 
@@ -148,32 +160,36 @@ def test_filter_wrapper_rejects_what_the_kernel_does_not_take():
 
     _, b, a, x, zi = FILTER_CASES[1]
     xt, zt = torch.from_numpy(x).cuda(), torch.from_numpy(zi).cuda()
-    before = filter_kernel.launches
+    before = build.launches["block_filter"]
     for args in ((xt.half(), zt), (xt, zt.double()), (xt, zt[:-1]),
                  (xt.t().contiguous().t(), zt), (xt, zt.cpu()), (xt[0], zt)):
         with pytest.raises(ValueError):
-            filter_kernel.lfilter(b, a, *args)
+            filt.lfilter(b, a, *args)
     b9, a9 = filt.butter_bandpass(5, 20.0, 150.0, 302)          # 10 states
     with pytest.raises(ValueError):
-        filter_kernel.lfilter(b9, a9, xt, torch.zeros(xt.shape[0], 10, device="cuda"))
-    assert filter_kernel.launches == before
+        filt.lfilter(b9, a9, xt, torch.zeros(xt.shape[0], 10, device="cuda"))
+    cpu_bf = filt.BlockFilter.build(b, a, 256, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):                  # the wrapper: CUDA only
+        filter_kernel.lfilter(cpu_bf, xt.cpu(), zt.cpu())
+    assert build.launches["block_filter"] == before
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FILTER_CASES, ids=[c[0] for c in FILTER_CASES])
 def test_block_filter_phase_entry_points_match_their_plain_pieces(case):
-    """``filter_kernel.contributions`` / ``carry_scan`` / ``apply`` each
-    equal their ``BlockFilter`` piece bit for bit (the carry scan's exit
-    state and carry-ins both), both dtypes, one launch each."""
+    """``ops/filter.contributions`` / ``carry_scan`` / ``apply`` on the card
+    (the filter kernel's phase entry points) each equal their
+    ``BlockFilter`` piece bit for bit (the carry scan's exit state and
+    carry-ins both), both dtypes, one launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, b, a, x, zi = case
     xt, zt = torch.from_numpy(x).cuda(), torch.from_numpy(zi).cuda()
-    before = dict(filter_kernel.phase_launches)
+    before = {k: build.launches[k] for k in chip_smoke.FILTER_PHASES}
     errors = chip_smoke.filter_phase_errors(b, a, xt, zt)
     assert errors == {"contributions": 0.0, "carry_scan": 0.0, "carry_ins": 0.0,
                       "apply": 0.0}
-    assert filter_kernel.phase_launches == {k: v + 1 for k, v in before.items()}
+    assert {k: build.launches[k] for k in before} == {k: v + 1 for k, v in before.items()}
 
 
 @pytest.mark.gpu
@@ -190,7 +206,7 @@ def test_filter_phase_wrappers_reject_what_the_kernel_does_not_take():
     zt = torch.from_numpy(zi).cuda()
     C = bf.contributions(X)
     S0 = bf.carry_scan(C, zt)[1]
-    before = dict(filter_kernel.phase_launches)
+    before = {k: build.launches[k] for k in chip_smoke.FILTER_PHASES}
     for bad in (X.double(), X[:, :, :-1], X.transpose(0, 1).contiguous().transpose(0, 1),
                 X.reshape(X.shape[0], -1)):
         with pytest.raises(ValueError):
@@ -206,11 +222,13 @@ def test_filter_phase_wrappers_reject_what_the_kernel_does_not_take():
     cpu_bf = filt.BlockFilter.build(b, a, L, torch.float32, "cpu")
     with pytest.raises(ValueError):
         filter_kernel.contributions(cpu_bf, X)                 # tables on another device
+    with pytest.raises(ValueError, match="CUDA"):              # the wrapper: CUDA only
+        filter_kernel.contributions(cpu_bf, X.cpu())
     b9, a9 = filt.butter_bandpass(5, 20.0, 150.0, 302)          # 10 states
     bf9 = filt.BlockFilter.build(b9, a9, L, torch.float32, "cuda")
     with pytest.raises(ValueError):
         filter_kernel.contributions(bf9, X)
-    assert filter_kernel.phase_launches == before
+    assert {k: build.launches[k] for k in before} == before
 
 
 @pytest.mark.gpu
@@ -225,12 +243,13 @@ def test_classify_kernel_constant_division_equals_ieee_division(config):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from bpm_analysis_tpu_torch.config import DEFAULT_CONFIG
+    from bpm_analysis_tpu_torch.models import classifier
 
     if config == "random":
         assert classify_kernel.division_mismatches(None, 1 << 26, seed=4) == 0
         return
     cfg = chip_smoke.engine_config() if config == "engine" else DEFAULT_CONFIG
-    divisors = classify_kernel.constant_divisors(302, cfg)
+    divisors = classifier.constant_divisors(302, cfg)
     assert len(divisors) >= 3 + 1 + 3 + 3
     assert classify_kernel.division_mismatches(divisors, 1 << 22, seed=3) == 0
 
@@ -254,11 +273,11 @@ def test_cuda_kernel_matches_plain_version(case):
     dev = torch.device("cuda")
     args = [torch.from_numpy(a).to(dev) for a in (pos, val, cnt)]
     nv_t = None if nv is None else torch.from_numpy(nv).to(dev)
-    before = knot_kernel.launches
+    before = build.launches["knot_quantile"]
     got = knot_kernel.knot_quantile_anchors(*args, n, window, 0.2, min_periods=3,
                                             stride=stride, min_spacing=ms, n_valid=nv_t)
     torch.cuda.synchronize()
-    assert knot_kernel.launches == before + 1
+    assert build.launches["knot_quantile"] == before + 1
     exp = kq.rolling_quantile_knots(*args, n, window, 0.2, min_periods=3, stride=stride,
                                     min_spacing=ms, n_valid=nv_t, dtype=torch.float32)
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
@@ -289,6 +308,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     strided = torch.zeros((1, 16), dtype=torch.int32, device=dev)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         knot_kernel.knot_quantile_anchors(strided, val, cnt, 100, 31, 0.2)
+    with pytest.raises(ValueError, match="CUDA"):                  # the wrapper: CUDA only
+        knot_kernel.knot_quantile_anchors(pos.cpu(), val.cpu(), cnt.cpu(), 100, 31, 0.2)
 
 
 STRIDED_CASES = chip_smoke.strided_kernel_cases()
@@ -301,11 +322,11 @@ def test_strided_kernel_matches_plain_version(case):
         pytest.skip("needs a CUDA device")
     _, x, window, stride, q, mp = case
     xt = torch.from_numpy(x).to("cuda")
-    before = quantile_kernel.launches
+    before = build.launches["strided_quantile"]
     got = quantile_kernel.strided_quantile_anchors(xt, window, q, mp, stride)
     torch.cuda.synchronize()
-    assert quantile_kernel.launches == before + 1
-    exp = quantile_kernel.plain_anchors(xt, window, q, mp, stride)
+    assert build.launches["strided_quantile"] == before + 1
+    exp = tq.strided_quantile_anchors_f32_plain(xt, window, q, mp, stride)
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
                                rtol=chip_smoke.STRIDED_RTOL, atol=0, equal_nan=True)
 
@@ -315,13 +336,13 @@ def test_strided_wrapper_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x = torch.ones((2, 400), dtype=torch.float32, device="cuda")
-    before = quantile_kernel.launches
-    for bad in (x.to(torch.int32), x.double(), x[:, ::2], x[0]):
+    before = build.launches["strided_quantile"]
+    for bad in (x.to(torch.int32), x.double(), x[:, ::2], x[0], x.cpu()):
         with pytest.raises(ValueError):
             quantile_kernel.strided_quantile_anchors(bad, 61, 0.2, 3, 8)
     with pytest.raises(ValueError):
         quantile_kernel.strided_quantile_anchors(x, quantile_kernel.MAX_WINDOW + 1, 0.2, 3, 8)
-    assert quantile_kernel.launches == before
+    assert build.launches["strided_quantile"] == before
 
 
 # The fleet cell's batch, the serial cell's envelope (one ten-minute 44.1 kHz
@@ -353,10 +374,10 @@ def test_row_quantile_kernel_matches_plain_version(shape, dtype):
                         None if vt is None else vt.repeat(reps, 1)[:bsz].contiguous())]
         for xb, vb in batches:
             for q in chip_smoke.ROW_QUANTILE_QS:
-                before = row_quantile_kernel.launches
+                before = build.launches["row_quantile"]
                 got = row_quantile_kernel.quantile_exact(xb, q, vb)
                 torch.cuda.synchronize()
-                assert row_quantile_kernel.launches == before + 1
+                assert build.launches["row_quantile"] == before + 1
                 exp = tq.quantile_exact_plain(xb, q, vb)
                 assert chip_smoke.same_values(got, exp), (name, q, got[:3], exp[:3])
 
@@ -367,12 +388,13 @@ def test_row_quantile_wrapper_rejects_what_the_kernel_does_not_take():
         pytest.skip("needs a CUDA device")
     x = torch.ones((2, 400), dtype=torch.float32, device="cuda")
     valid = torch.ones((2, 400), dtype=torch.bool, device="cuda")
-    before = row_quantile_kernel.launches
+    before = build.launches["row_quantile"]
     for bad, v in ((x.to(torch.int32), None), (x.half(), None), (x[:, ::2], None),
-                   (x[0], None), (x, valid[:, :200]), (x, valid.cpu())):
+                   (x[0], None), (x, valid[:, :200]), (x, valid.cpu()),
+                   (x.cpu(), valid.cpu())):
         with pytest.raises(ValueError):
             row_quantile_kernel.quantile_exact(bad, 0.2, v)
-    assert row_quantile_kernel.launches == before
+    assert build.launches["row_quantile"] == before
 
 
 @pytest.mark.gpu
@@ -393,10 +415,10 @@ def test_rolling_quantile_kernel_matches_plain_version_and_reference(shape, dtyp
     for name, x, window, qs, mp in chip_smoke.rolling_quantile_cases(n, bsz):
         xt = torch.from_numpy(x).to("cuda", dtype)
         for q in qs:
-            before = rolling_quantile_kernel.launches
+            before = build.launches["rolling_quantile"]
             got = tq.rolling_quantile_centered(xt, window, q, mp)
             torch.cuda.synchronize()
-            assert rolling_quantile_kernel.launches == before + 1, name
+            assert build.launches["rolling_quantile"] == before + 1, name
             exp = tq.rolling_quantile_centered_plain(xt, window, q, mp)
             assert chip_smoke.same_values(got, exp), (name, window, q)
             ref = exact_floor.rolling_quantile_centered(xt, window, q, mp, block=4096)
@@ -411,14 +433,14 @@ def test_rolling_quantile_wrapper_rejects_what_the_kernel_does_not_take():
     """Bad dtypes, shapes, parameters and a CPU tensor raise before a
     launch; a strided tensor is taken as its contiguous copy."""
     x = torch.ones((2, 400), dtype=torch.float32, device="cuda")
-    before = rolling_quantile_kernel.launches
+    before = build.launches["rolling_quantile"]
     for bad in (x.to(torch.int32), x.half(), x[0], x.cpu()):
         with pytest.raises(ValueError):
             rolling_quantile_kernel.rolling_quantile_centered(bad, 64, 0.2, 3)
     for window, q in ((0, 0.2), (64, 1.5), (64, float("nan"))):
         with pytest.raises(ValueError):
             rolling_quantile_kernel.rolling_quantile_centered(x, window, q, 3)
-    assert rolling_quantile_kernel.launches == before
+    assert build.launches["rolling_quantile"] == before
     strided = torch.randn((2, 800), device="cuda")[:, ::2]
     assert chip_smoke.same_values(
         rolling_quantile_kernel.rolling_quantile_centered(strided, 64, 0.2, 3),
@@ -460,11 +482,11 @@ def test_batched_host_on_the_card_equals_the_cpu(tmp_path, monkeypatch):
 
     monkeypatch.setattr(host_batch, "_staging_buffer", spy_buffer)
     monkeypatch.setattr(torch.cuda.Stream, "wait_event", spy_wait)
-    before = knot_kernel.launches
+    before = build.launches["knot_quantile"]
     card, errors = host_batch.analyze_files_batched(paths, cfg, str(tmp_path / "card"),
                                                    render=False, min_bucket=1 << 13)
     assert errors == []
-    assert knot_kernel.launches == before + 2
+    assert build.launches["knot_quantile"] == before + 2
     assert pinned and all(pinned) and len(waits) == 1
     cpu, errors = host_batch.analyze_files_batched(paths, cfg, str(tmp_path / "cpu"),
                                                   render=False, min_bucket=1 << 13,

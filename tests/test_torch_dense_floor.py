@@ -39,13 +39,13 @@ from bpm_analysis_tpu.ops import find_peaks as jfp
 from bpm_analysis_tpu.ops import series as jseries
 from bpm_analysis_tpu_torch import config as tcfg
 from bpm_analysis_tpu_torch.accuracy import beat_f1, result_curves
+from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.models import envelope as tenv
 from bpm_analysis_tpu_torch.models import noise_floor as tnf
 from bpm_analysis_tpu_torch.models import pipeline as tpipe
 from bpm_analysis_tpu_torch.ops import filter as tfilter
 from bpm_analysis_tpu_torch.ops import find_peaks as tfp
 from bpm_analysis_tpu_torch.ops import series as tseries
-from bpm_analysis_tpu_torch.ops.cuda import quantile_kernel as tqk
 from test_torch_pipeline import _leaves
 
 # The suite runs several worker processes at once; these small tensors gain
@@ -148,9 +148,9 @@ def test_dense_noise_floor_matches_jax(padded_envelopes, port_backend, stride, d
                       quantile_backend="xla" if port_backend == "pallas" else port_backend)
     assert tnf.quantile_path(tcfg.config_from_dict(dataclasses.asdict(port_cfg))) == {
         "xla": "strided", "pallas": "strided_kernel", "auto": "exact"}[port_backend]
-    before = tqk.launches
+    before = build.launches.copy()
     got, exp = _floors(env.astype(dtype), nv, jax_cfg, port_cfg)
-    assert tqk.launches == before            # no kernel launch on the CPU
+    assert build.launches == before          # no kernel launch on the CPU
     np.testing.assert_array_equal(got.trough_count.numpy(), exp.trough_count)
     np.testing.assert_array_equal(got.trough_positions.numpy(), exp.trough_positions)
     np.testing.assert_array_equal(got.raw_trough_positions.numpy(), exp.raw_trough_positions)

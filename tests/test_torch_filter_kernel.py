@@ -34,7 +34,7 @@ import torch
 
 import chip_smoke
 from bpm_analysis_tpu_torch.ops import filter as tfilter
-from bpm_analysis_tpu_torch.ops.cuda import filter_kernel
+from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.parallel import seqshard
 
 torch.set_num_threads(1)
@@ -237,11 +237,11 @@ def test_phase_wrappers_take_the_plain_pieces_on_the_cpu():
     _, b, a, x, zi = CASES[1]
     bf, L, nb = _filter_of(b, a, x)
     X = torch.nn.functional.pad(torch.from_numpy(x), (0, nb * L - x.shape[1])).reshape(-1, nb, L)
-    before = dict(filter_kernel.phase_launches), filter_kernel.launches
-    C = filter_kernel.contributions(bf, X)
-    s, S0 = filter_kernel.carry_scan(bf, C, torch.from_numpy(zi))
-    y = filter_kernel.apply(bf, X, S0)
-    assert (filter_kernel.phase_launches, filter_kernel.launches) == before
+    before = build.launches.copy()
+    C = tfilter.contributions(bf, X)
+    s, S0 = tfilter.carry_scan(bf, C, torch.from_numpy(zi))
+    y = tfilter.apply(bf, X, S0)
+    assert build.launches == before
     C_exp = bf.contributions(X)
     s_exp, S0_exp = bf.carry_scan(C_exp, torch.from_numpy(zi))
     for got, exp in ((C, C_exp), (s, s_exp), (S0, S0_exp), (y, bf.apply(X, S0_exp))):
@@ -270,7 +270,7 @@ class _ThreadRow:
 
 def _sharded(x: torch.Tensor, sp: int, monkeypatch, phases=None):
     """The sharded filtfilt of ``x`` (B, n) with sp thread ranks, gathered;
-    ``phases`` replaces filter_kernel's phase entry points."""
+    ``phases`` replaces ``ops/filter``'s phase entry points."""
     row = _ThreadRow(sp)
     monkeypatch.setattr(seqshard, "all_gather",
                         lambda mesh, t, axis="dp": torch.stack(row.exchange(mesh, t)))
@@ -284,7 +284,7 @@ def _sharded(x: torch.Tensor, sp: int, monkeypatch, phases=None):
 
     monkeypatch.setattr(seqshard, "all_reduce", all_reduce)
     for name, fn in (phases or {}).items():
-        monkeypatch.setattr(filter_kernel, name, fn)
+        monkeypatch.setattr(tfilter, name, fn)
     blk = x.shape[1] // sp
     out, errors = [None] * sp, []
 
@@ -330,7 +330,7 @@ def _emulated_phases(calls):
 @pytest.mark.parametrize("sp", [2, 4])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_sharded_relay_runs_the_phase_entry_points(sp, dtype, monkeypatch):
-    """The relay calls filter_kernel's phase entry points (each rank one
+    """The relay calls ``ops/filter``'s phase entry points (each rank one
     contributions and one apply a pass, its carry scan once a pass), and
     with the entry points replaced by the kernel's emulation it gives the
     same bits as through the plain pieces."""
@@ -338,8 +338,7 @@ def test_sharded_relay_runs_the_phase_entry_points(sp, dtype, monkeypatch):
     n = 2 * 3 * 2416                     # blocks of 2416 / 3 at sp=2 / 4: L = 151
     x = torch.from_numpy((rng.randn(2, n) * 300).astype(dtype))
     seen = []
-    real = {name: getattr(filter_kernel, name) for name in ("contributions", "carry_scan",
-                                                            "apply")}
+    real = {name: getattr(tfilter, name) for name in ("contributions", "carry_scan", "apply")}
 
     def counted(name):
         def fn(*a):

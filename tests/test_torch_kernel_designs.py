@@ -25,7 +25,7 @@ version's anchors exactly (NaN positions equal, every other value equal).
   v_lo's 16-bit prefix (or over the window when they are more than 128),
   and the v_hi rule (a tie in round 4's bin, its next non-empty bin, the
   smallest key above v_lo in the compact list, or the min pass).  Against
-  ``ops/cuda/quantile_kernel.plain_anchors``.
+  ``ops/quantile.strided_quantile_anchors_f32_plain``.
 
 The cases are chip_smoke.py's (the card's), the engine shapes cut to two
 rows of 30,000 samples.
@@ -36,7 +36,7 @@ import torch
 
 import chip_smoke
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
-from bpm_analysis_tpu_torch.ops.cuda import quantile_kernel as qk
+from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.rolling import centered_bounds
 
 torch.set_num_threads(1)
@@ -414,7 +414,7 @@ def test_strided_kernel_design_equals_plain_version(case):
     name, x, window, stride, q, mp = case
     stats = dict.fromkeys(STATS, 0)
     got = emulate_strided_kernel(x, window, q, mp, stride, stats)
-    exp = qk.plain_anchors(torch.from_numpy(x), window, q, mp, stride).numpy()
+    exp = tq.strided_quantile_anchors_f32_plain(torch.from_numpy(x), window, q, mp, stride).numpy()
     np.testing.assert_array_equal(got, exp)
     # The edges each case is there for.
     if name == "ragged_tile_w301":
@@ -441,7 +441,7 @@ def test_strided_design_ties_and_missing_windows():
     x[0, 250:] = np.nan
     stats = dict.fromkeys(STATS, 0)
     got = emulate_strided_kernel(x, 61, 0.3, 3, 8, stats)
-    exp = qk.plain_anchors(torch.from_numpy(x), 61, 0.3, 3, 8).numpy()
+    exp = tq.strided_quantile_anchors_f32_plain(torch.from_numpy(x), 61, 0.3, 3, 8).numpy()
     np.testing.assert_array_equal(got, exp)
     assert (got[0, :25] == F32(7.25)).all() and np.isnan(got[0, -10:]).all()
     assert stats["tie"] > 0 and stats["next_bin"] == stats["min_pass"] == 0

@@ -23,10 +23,10 @@ from bpm_analysis_tpu.ops import find_peaks as jfp
 from bpm_analysis_tpu.ops import knot_quantile as jkq
 from bpm_analysis_tpu.ops.pallas import knot_kernel as jkk
 from bpm_analysis_tpu_torch.config import config_from_dict
+from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.models import noise_floor as tnf
 from bpm_analysis_tpu_torch.ops import find_peaks as tfp
 from bpm_analysis_tpu_torch.ops import knot_quantile as tkq
-from bpm_analysis_tpu_torch.ops.cuda import knot_kernel as tkk
 
 # The suite runs several worker processes at once; these small tensors gain
 # nothing from intra-op threads, and oversubscribed threads stall each other.
@@ -88,15 +88,15 @@ def test_plain_float64_matches_jax_exactly_enough():
 def test_wrapper_takes_plain_version_for_cpu_tensors():
     case = CASES[0]
     _, pos, val, cnt, n, window, stride, ms, _ = case
-    before = tkk.launches
-    got = tkk.knot_quantile_anchors(torch.from_numpy(pos), torch.from_numpy(val),
-                                    torch.from_numpy(cnt), n, window, 0.2, min_periods=3,
-                                    stride=stride, min_spacing=ms).numpy()
-    assert tkk.launches == before          # no kernel launch on the CPU
+    before = build.launches["knot_quantile"]
+    got = tkq.knot_quantile_anchors_f32(torch.from_numpy(pos), torch.from_numpy(val),
+                                        torch.from_numpy(cnt), n, window, 0.2, min_periods=3,
+                                        stride=stride, min_spacing=ms).numpy()
+    assert build.launches["knot_quantile"] == before   # no kernel launch on the CPU
     np.testing.assert_array_equal(got, _plain(case))
     with pytest.raises(ValueError):
-        tkk.knot_quantile_anchors(torch.from_numpy(pos).to("meta"), torch.from_numpy(val),
-                                  torch.from_numpy(cnt), n, window, 0.2)
+        tkq.knot_quantile_anchors_f32(torch.from_numpy(pos).to("meta"), torch.from_numpy(val),
+                                      torch.from_numpy(cnt), n, window, 0.2)
 
 
 def test_anchors_at_matches_jax():

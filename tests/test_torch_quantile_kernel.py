@@ -7,7 +7,7 @@ version of the CUDA strided-quantile kernel.
   at rtol 1e-15: the selections pick the same element, and XLA:CPU at the
   slow tier's O2 contracts the final ``v_lo + frac * (v_hi - v_lo)`` into one
   fused multiply-add (1 ulp; bit-equal at the fast tier's O0).
-* The kernel's plain version (``quantile_kernel.plain_anchors``) against the
+* The kernel's plain version (``strided_quantile_anchors_f32_plain``) against the
   TPU kernel itself, ``strided_quantile_anchors_pallas`` in interpret mode,
   at rtol 1e-6, and its raw-bit validity (+inf, negatives and -0.0 are
   missing).  The CUDA kernel itself runs only on a card:
@@ -24,7 +24,7 @@ import chip_smoke
 from bpm_analysis_tpu.ops import quantile as jq
 from bpm_analysis_tpu.ops.pallas import quantile_kernel as jqk
 from bpm_analysis_tpu_torch.ops import quantile as tq
-from bpm_analysis_tpu_torch.ops.cuda import quantile_kernel as tqk
+from bpm_analysis_tpu_torch.kernels import build
 
 # The suite runs several worker processes at once; these small tensors gain
 # nothing from intra-op threads, and oversubscribed threads stall each other.
@@ -62,7 +62,8 @@ def test_strided_matches_jax_xla(window, stride, dtype):
 @pytest.mark.parametrize("window,stride", WINDOWS)
 def test_plain_version_matches_pallas_kernel_interpret(window, stride):
     x = _pallas_case_input()
-    got = tqk.plain_anchors(torch.from_numpy(x), window, 0.2, 3, stride=stride).numpy()
+    got = tq.strided_quantile_anchors_f32_plain(torch.from_numpy(x), window, 0.2, 3,
+                                                stride=stride).numpy()
     exp = np.asarray(jqk.strided_quantile_anchors_pallas(
         jnp.asarray(x), window, 0.2, 3, stride, interpret=True))
     assert got.shape == exp.shape
@@ -76,7 +77,8 @@ def test_kernel_cases_plain_matches_jax_xla():
     for name, x, window, stride, q, mp in chip_smoke.strided_kernel_cases():
         if name == "engine_shapes":
             continue
-        got = tqk.plain_anchors(torch.from_numpy(x), window, q, mp, stride=stride).numpy()
+        got = tq.strided_quantile_anchors_f32_plain(torch.from_numpy(x), window, q, mp,
+                                                    stride=stride).numpy()
         exp = np.stack([np.asarray(jq.rolling_quantile_centered_strided(
             jnp.asarray(r), window, q, mp, stride=stride))[::stride] for r in x])
         np.testing.assert_allclose(got, exp, rtol=1e-6, equal_nan=True, err_msg=name)
@@ -92,7 +94,7 @@ def test_plain_version_treats_raw_bits_as_the_kernel_does():
     x[0, 100:110] = -3.0
     x[1, 200:210] = -0.0
     x[1, 300] = np.nan
-    got = tqk.plain_anchors(torch.from_numpy(x), 61, 0.3, 3, stride=5).numpy()
+    got = tq.strided_quantile_anchors_f32_plain(torch.from_numpy(x), 61, 0.3, 3, stride=5).numpy()
     masked = np.where(np.signbit(x) | np.isinf(x), np.nan, x)
     exp = tq.strided_quantile_anchors(torch.from_numpy(masked), 61, 0.3, 3, stride=5).numpy()
     np.testing.assert_array_equal(got, exp)
@@ -103,18 +105,19 @@ def test_plain_version_treats_raw_bits_as_the_kernel_does():
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():
     x = torch.from_numpy(_pallas_case_input())
-    before = tqk.launches
-    got = tqk.strided_quantile_anchors(x, 603, 0.2, 3, stride=8)
-    assert tqk.launches == before          # no kernel launch on the CPU
-    np.testing.assert_array_equal(got.numpy(), tqk.plain_anchors(x, 603, 0.2, 3, 8).numpy())
-    dense = tqk.rolling_quantile_strided_cuda(x.double(), 603, 0.2, 3, stride=8)
+    before = build.launches["strided_quantile"]
+    got = tq.strided_quantile_anchors_f32(x, 603, 0.2, 3, stride=8)
+    assert build.launches["strided_quantile"] == before   # no kernel launch on the CPU
+    np.testing.assert_array_equal(got.numpy(),
+                                  tq.strided_quantile_anchors_f32_plain(x, 603, 0.2, 3, 8).numpy())
+    dense = tq.rolling_quantile_strided_f32(x.double(), 603, 0.2, 3, stride=8)
     assert dense.dtype == torch.float64 and dense.shape == x.shape
     np.testing.assert_array_equal(dense.numpy()[:, ::8], got.numpy().astype(np.float64))
     for bad in (x.double(), x.to(torch.int32), x[:, ::2], x[0]):
         with pytest.raises(ValueError):
-            tqk.strided_quantile_anchors(bad, 603, 0.2, 3, stride=8)
+            tq.strided_quantile_anchors_f32(bad, 603, 0.2, 3, stride=8)
     with pytest.raises(ValueError):
-        tqk.strided_quantile_anchors(x.to("meta"), 603, 0.2, 3, stride=8)
+        tq.strided_quantile_anchors_f32(x.to("meta"), 603, 0.2, 3, stride=8)
 
 
 def _rows(n, seed):

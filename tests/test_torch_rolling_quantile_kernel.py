@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.cuda import rolling_quantile_kernel as rk
 
@@ -211,24 +212,24 @@ def test_cpu_tensor_takes_the_plain_version(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the kernel's wrapper was called for a CPU tensor")
 
-    monkeypatch.setattr(rk, "_library", refuse)
+    monkeypatch.setattr(build, "load", refuse)
     monkeypatch.setattr(rk, "rolling_quantile_centered", refuse)
     x = torch.from_numpy(np.random.RandomState(3).randn(2, 1000))
-    before = rk.launches
+    before = build.launches["rolling_quantile"]
     for xs in (x, x[:, ::2]):
         exp = tq.rolling_quantile_centered_plain(xs.contiguous(), 64, 0.2, 3)
         assert chip_smoke.same_values(tq.rolling_quantile_centered(xs, 64, 0.2, 3), exp)
-    assert rk.launches == before
+    assert build.launches["rolling_quantile"] == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
     """Bad dtypes, shapes and parameters raise before the device is
     looked at, and a tensor off the card raises without loading the
     library."""
-    def refuse():
+    def refuse(name):
         raise AssertionError("the library was loaded")
 
-    monkeypatch.setattr(rk, "_library", refuse)
+    monkeypatch.setattr(build, "load", refuse)
     x = torch.ones((2, 400), dtype=torch.float32)
     for bad in (x.to(torch.int32), x.half(), x[0], x[None]):
         with pytest.raises(ValueError, match="2-D float32 or float64"):

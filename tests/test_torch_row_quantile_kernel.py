@@ -1,11 +1,12 @@
 """The row-quantile kernel's surroundings on the CPU
-(``ops/cuda/row_quantile_kernel``, ``csrc/row_quantile.cu``): the wrapper
-takes the plain version for a CPU tensor and rejects what the kernel does
-not take; the plain version matches the JAX package's ``quantile_exact`` on
-adversarial rows (``chip_smoke.row_quantile_cases``); and the kernel's
-design, emulated in numpy (11-bit digits of the key, a row split into the
-slices of a cluster's blocks, the float-compare pass for v_hi), equals the
-plain version bit for bit.  The kernel itself runs in
+(``ops/cuda/row_quantile_kernel``, ``csrc/row_quantile.cu``):
+``ops/quantile.quantile_exact`` takes the plain version for a CPU tensor
+and rejects what the kernel does not take; the plain version matches the
+JAX package's ``quantile_exact`` on adversarial rows
+(``chip_smoke.row_quantile_cases``); and the kernel's design, emulated in
+numpy (11-bit digits of the key, a row split into the slices of a
+cluster's blocks, the float-compare pass for v_hi), equals the plain
+version bit for bit.  The kernel itself runs in
 ``tests/test_torch_cuda.py`` on a card."""
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 import chip_smoke
 from bpm_analysis_tpu.ops import quantile as jq
 from bpm_analysis_tpu_torch.ops import quantile as tq
-from bpm_analysis_tpu_torch.ops.cuda import row_quantile_kernel
+from bpm_analysis_tpu_torch.kernels import build
 
 torch.set_num_threads(1)
 
@@ -102,10 +103,10 @@ def emulate(x: np.ndarray, q: float, valid, split: int) -> np.ndarray:
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_wrapper_takes_the_plain_version_on_the_cpu(case, q):
     x, valid = _tensors(case, np.float64)
-    before = row_quantile_kernel.launches
-    got = row_quantile_kernel.quantile_exact(x, q, valid)
+    before = build.launches["row_quantile"]
+    got = tq.quantile_exact(x, q, valid)
     exp = tq.quantile_exact_plain(x, q, valid)
-    assert row_quantile_kernel.launches == before
+    assert build.launches["row_quantile"] == before
     assert chip_smoke.same_values(got, exp)
 
 
@@ -123,7 +124,7 @@ def _bad_inputs():
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     _, x, valid = bad
     with pytest.raises(ValueError):
-        row_quantile_kernel.quantile_exact(x, 0.5, valid)
+        tq.quantile_exact(x, 0.5, valid)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -4,7 +4,7 @@ CPU and held bit for bit against their plain versions.
 The kernels run only on a card (tests/test_torch_cuda.py).  These tests keep
 their arithmetic checkable here: each emulation walks one recording's slots
 as the kernel does, with np.float32 / np.float64 scalars, the kernel's
-constant tables (``classify_kernel.constants``), a 64-bit mask for the
+constant tables (``classifier.kernel_constants``), a 64-bit mask for the
 20-slot paired ring and 4-bit masks for the kick-start rings and
 NaN-propagating clamp / maximum / minimum.  The classifier's emulation
 follows its block's design: per chunk of 64 slots, the helper warps'
@@ -48,7 +48,8 @@ from bpm_analysis_tpu_torch.models import envelope as tenv
 from bpm_analysis_tpu_torch.models import noise_floor as tnf
 from bpm_analysis_tpu_torch.models import pipeline as tpipe
 from bpm_analysis_tpu_torch.ops import find_peaks as tfp
-from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, rhythm_kernel
+from bpm_analysis_tpu_torch.kernels import build
+from bpm_analysis_tpu_torch.ops.cuda import classify_kernel
 from bpm_analysis_tpu_torch import types
 
 torch.set_num_threads(1)
@@ -113,7 +114,7 @@ def _captured(dtype: str):
     peak_t[1] = float("nan")
 
     calls = {}
-    real_scan, real_rhythm = classify_kernel.classify_scan, rhythm_kernel.rhythm_scan
+    real_scan, real_rhythm = tcls.classify_scan, tcorr.rhythm_scan
 
     def scan(x, *a, **k):
         calls["scan"] = x
@@ -123,13 +124,13 @@ def _captured(dtype: str):
         calls["rhythm"] = a[:4]
         return real_rhythm(*a, **k)
 
-    classify_kernel.classify_scan, rhythm_kernel.rhythm_scan = scan, rhythm
+    tcls.classify_scan, tcorr.rhythm_scan = scan, rhythm
     try:
         res = tcls.classify(env, floor, pos, count, SR, start, cfg,
                             peak_bpm_time_sec=peak_t, recovery_end_time_sec=rec_end)
         tcorr.rhythm_correction(res.s1_positions, res.s1_count, env, SR, cfg)
     finally:
-        classify_kernel.classify_scan, rhythm_kernel.rhythm_scan = real_scan, real_rhythm
+        tcls.classify_scan, tcorr.rhythm_scan = real_scan, real_rhythm
     _CACHE[dtype] = calls["scan"], calls["rhythm"], n
     _CORRECTION[dtype] = cfg, res.s1_positions, res.s1_count, env
     return _CACHE[dtype]
@@ -240,7 +241,7 @@ def emulate_classify(x: tcls.ScanInputs, cfg, want_trace: bool):
     it into the chunk's out buffers, then the flush of those buffers."""
     dtype = x.deviation.dtype
     T = np.float32 if dtype == torch.float32 else np.float64
-    floats, si = classify_kernel.constants(SR, cfg, dtype)
+    floats, si = tcls.kernel_constants(SR, cfg, dtype)
     sc = [T(v) for v in floats]
     tables = [sc[32 + i * 48:32 + (i + 1) * 48] for i in range(5)]
     kick = cfg.compat.kickstart_effective
@@ -417,7 +418,7 @@ def emulate_classify(x: tcls.ScanInputs, cfg, want_trace: bool):
     if not want_trace:
         return pc, None
     out.update(peak_class=pc, lone_reason=lone_out, paired=paired_out)
-    out.update({f: getattr(x, f).numpy() for f in classify_kernel.SLOT_FIELDS})
+    out.update({f: getattr(x, f).numpy() for f in tcls.SLOT_FIELDS})
     return pc, out
 
 
@@ -467,10 +468,10 @@ def test_classify_kernel_emulation_at_full_capacity(dtype):
 def test_classify_wrapper_takes_the_plain_version_on_the_cpu():
     x, _, _ = _captured("float32")
     cfg = _config("float32")
-    before = classify_kernel.launches
-    pc, trace = classify_kernel.classify_scan(x, 18120, SR, cfg)
+    before = build.launches["classify_scan"]
+    pc, trace = tcls.classify_scan(x, 18120, SR, cfg)
     pc_exp, trace_exp = tcls.scan_plain(x, SR, cfg)
-    assert classify_kernel.launches == before
+    assert build.launches["classify_scan"] == before
     assert torch.equal(pc, pc_exp)
     for f in tcls.ClassifierTrace._fields:
         assert torch.equal(torch.nan_to_num(getattr(trace, f), nan=-7.0),
@@ -671,8 +672,8 @@ def test_conflict_limit_equals_brute_force(dtype):
 
 def test_rhythm_wrapper_takes_the_plain_version_on_the_cpu():
     pos, amp, count, threshold = _rhythm_cases("float32")["conflicts"]
-    before = rhythm_kernel.launches
-    written, victim = rhythm_kernel.rhythm_scan(pos, amp, count, threshold, 18120, SR)
+    before = build.launches["rhythm_scan"]
+    written, victim = tcorr.rhythm_scan(pos, amp, count, threshold, 18120, SR)
     w_exp, v_exp = tcorr.rhythm_scan_plain(pos, amp, count, threshold, SR)
-    assert rhythm_kernel.launches == before
+    assert build.launches["rhythm_scan"] == before
     assert torch.equal(written, w_exp) and torch.equal(victim, v_exp)

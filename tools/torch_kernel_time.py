@@ -7,10 +7,12 @@ beside an empty launch.
 
 Drives phase 4's batch (16 ten-minute synthetic recordings at the engine
 configuration) through the main path once, captures the arguments of both
-``classify_scan`` calls (the preliminary pass without the trace, the main
-pass with it), of the ``rhythm_scan`` call and of both ``lfilter`` calls
-(the filtfilt's passes), holds each kernel against its plain version (max
-abs error), and times each call three ways: CUDA events around ``--reps``
+``classifier.classify_scan`` calls (the preliminary pass without the trace,
+the main pass with it), of the ``corrections.rhythm_scan`` call and of both
+``ops/filter.lfilter`` calls (the filtfilt's passes), each of which makes
+the CPU-or-card choice and on the card calls its kernel's wrapper, holds
+each kernel against its plain version (max abs error), and times each call
+three ways: CUDA events around ``--reps``
 calls issued back to back after a warm-up (``ms``: the host's issue time
 where it is the longer), the same calls queued behind a spin kernel
 (``queued_ms``, ``chip_smoke.device_ms``: the card's time alone), and
@@ -54,7 +56,6 @@ def main() -> int:
     from bpm_analysis_tpu_torch import synth
     from bpm_analysis_tpu_torch.models import classifier, corrections
     from bpm_analysis_tpu_torch.ops import filter as filt
-    from bpm_analysis_tpu_torch.ops.cuda import classify_kernel, filter_kernel, rhythm_kernel
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -64,17 +65,17 @@ def main() -> int:
                       for s in cs.SEEDS]).astype(np.float32)
     cs.run_main_path(batch, cfg, "cuda")
     c_calls, r_calls, f_calls = [], [], []
-    cs.counted_run(batch, cfg, {(classify_kernel, "classify_scan"): c_calls,
-                                (rhythm_kernel, "rhythm_scan"): r_calls,
-                                (filter_kernel, "lfilter"): f_calls})
+    cs.counted_run(batch, cfg, {(classifier, "classify_scan"): c_calls,
+                                (corrections, "rhythm_scan"): r_calls,
+                                (filt, "lfilter"): f_calls})
     out = {"card": card, "root": root, "kernels": {}}
-    calls = [(f"classify_scan {label}", classify_kernel.classify_scan,
+    calls = [(f"classify_scan {label}", classifier.classify_scan,
               lambda a, k: classifier.scan_plain(a[0], *a[2:], **k), cs.trace_error, a, k)
              for label, (a, k) in zip(("preliminary", "main"), c_calls)]
-    calls += [("rhythm_scan", rhythm_kernel.rhythm_scan,
+    calls += [("rhythm_scan", corrections.rhythm_scan,
                lambda a, k: corrections.rhythm_scan_plain(*a[:4], a[5]), cs.rhythm_error,
                *r_calls[-1])]
-    calls += [(f"block_filter {label}", filter_kernel.lfilter,
+    calls += [(f"block_filter {label}", filt.lfilter,
                lambda a, k: filt.lfilter_plain(*a, **k),
                lambda g, e: float((g - e).abs().max()), a, k)
               for label, (a, k) in zip(("forward", "backward"), f_calls)]

@@ -32,7 +32,6 @@ def main() -> int:
         return 2
     from bpm_analysis_tpu_torch import host_batch, synth
     from bpm_analysis_tpu_torch.io import wav
-    from bpm_analysis_tpu_torch.models import noise_floor
     from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, quantile_kernel
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -46,7 +45,7 @@ def main() -> int:
     cs.run_main_path(batch, cfg, "cuda")
     knot_calls, strided_calls = [], []
     res, _ = cs.counted_run(batch, cfg, {
-        (noise_floor.knot_kernel, "knot_quantile_anchors"): knot_calls})
+        (knot_kernel, "knot_quantile_anchors"): knot_calls})
     best = cs.warm_best(batch, cfg, 1)
     cs.log(f"phase 4's batch: warm wall {best:.3f}s on {card}")
     cfg_b2 = cfg.replace(runtime=dataclasses.replace(cfg.runtime, quantile_backend="pallas"))
