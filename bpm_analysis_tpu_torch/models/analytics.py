@@ -5,6 +5,10 @@ bpm_analysis.py:1414-1620 and ``_calculate_final_metrics`` :1701-1722).
 Every function works on (B, cap) arrays plus (B,) counts.  The reference's
 quirks stay behind the same switches (``compat.hrr_truncated_interp``: the
 integer-truncated epoch-second interpolation of ``calculate_hrr``).
+
+:func:`compute_metrics` is the CUDA kernel ``csrc/metrics.cu`` on the card
+(one launch) and :func:`compute_metrics_plain`, the eager functions below,
+on the CPU.
 """
 from __future__ import annotations
 
@@ -17,7 +21,11 @@ import torch
 from ..config import AnalyzerConfig
 from ..ops import find_peaks as fp
 from ..ops import rolling, series
+from ..ops.cuda import metrics_kernel
 from ..ops.indexing import arange, scatter_drop, take
+
+
+HRV_CAPACITY = 512   # windowed_hrv's window slots
 
 
 class BpmSeries(NamedTuple):
@@ -83,6 +91,16 @@ def _nan_like(x: torch.Tensor) -> torch.Tensor:
     return torch.full_like(x, float("nan"))
 
 
+def smoothing_slot_bound(sample_rate: int, cfg: AnalyzerConfig) -> int | None:
+    """Slots in half the BPM smoothing window at most (beat times are >= the
+    peak-finder NMS distance apart, which bounds the window's slot span), or
+    None past 128 slots, where the plain version's shifted adds would cost
+    more than a prefix sum."""
+    dt_min = max(int(cfg.features.min_peak_distance_sec * sample_rate), 1) / sample_rate
+    m_bound = int(math.ceil(cfg.output.output_smoothing_window_sec / 2 / dt_min)) + 1
+    return m_bound if m_bound <= 128 else None
+
+
 def bpm_series(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
                cfg: AnalyzerConfig, dtype: torch.dtype) -> BpmSeries:
     """``calculate_bpm_series`` (bpm_analysis.py:1463-1484): instantaneous
@@ -105,13 +123,9 @@ def bpm_series(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
     cinst = scatter_drop(cap, write, inst, float("nan"), dtype)
     valid = slot < vcount[:, None]
 
-    # Beat times are >= the peak-finder NMS distance apart, which bounds the
-    # smoothing window's slot span.
-    dt_min = max(int(cfg.features.min_peak_distance_sec * sample_rate), 1) / sample_rate
-    m_bound = int(math.ceil(cfg.output.output_smoothing_window_sec / 2 / dt_min)) + 1
     smoothed = rolling.rolling_mean_time_window(
         ctimes, cinst, valid, cfg.output.output_smoothing_window_sec,
-        max_slots_in_half_window=m_bound if m_bound <= 128 else None)
+        max_slots_in_half_window=smoothing_slot_bound(sample_rate, cfg))
     return BpmSeries(times=ctimes, smoothed=smoothed, instant=cinst,
                      count=vcount.to(torch.int32))
 
@@ -296,7 +310,7 @@ def hrr(bpm: BpmSeries, cfg: AnalyzerConfig) -> HrrStats:
 
 
 def windowed_hrv(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
-                 cfg: AnalyzerConfig, dtype, capacity: int = 512) -> HrvResult:
+                 cfg: AnalyzerConfig, dtype, capacity: int = HRV_CAPACITY) -> HrvResult:
     """``calculate_windowed_hrv`` (bpm_analysis.py:1414-1461): windows of
     ``hrv_window_size_beats`` RR intervals every ``hrv_step_size_beats``;
     SDNN (population std, ms), RMSSDc (= RMSSD_ms / mean_RR_sec, the
@@ -342,9 +356,10 @@ def _nan_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     return torch.where(torch.isnan(x).all(dim=1), torch.full_like(out, float("nan")), out)
 
 
-def compute_metrics(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
-                    cfg: AnalyzerConfig, dtype) -> Metrics:
-    """``_calculate_final_metrics`` (bpm_analysis.py:1701-1722)."""
+def compute_metrics_plain(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
+                          cfg: AnalyzerConfig, dtype) -> Metrics:
+    """``_calculate_final_metrics`` (bpm_analysis.py:1701-1722) in eager
+    PyTorch: the plain version of ``csrc/metrics.cu``."""
     bpm = bpm_series(positions, count, sample_rate, cfg, dtype)
     hrv = windowed_hrv(positions, count, sample_rate, cfg, dtype)
     cap = bpm.times.shape[1]
@@ -370,6 +385,44 @@ def compute_metrics(positions: torch.Tensor, count: torch.Tensor, sample_rate: i
         avg_bpm=avg, min_bpm=mn, max_bpm=mx,
         avg_rmssdc=avg_rmssdc, avg_sdnn=avg_sdnn,
     )
+
+
+def compute_metrics(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
+                    cfg: AnalyzerConfig, dtype) -> Metrics:
+    """``_calculate_final_metrics`` (bpm_analysis.py:1701-1722): on a card one
+    launch of the kernel ``csrc/metrics.cu``, the plain version's bits there
+    wherever :func:`smoothing_slot_bound` bounds the smoothing window below
+    the capacity, as in every benchmark cell; with an unbounded window the
+    kernel sums each window in slot order where the plain version
+    differences a prefix sum, so the two differ by rounding.
+    :func:`compute_metrics_plain` on the CPU."""
+    if positions.device.type == "cpu":
+        return compute_metrics_plain(positions, count, sample_rate, cfg, dtype)
+    p = metrics_kernel.compute(positions.to(torch.int32).contiguous(),
+                               count.to(torch.int32).contiguous(), sample_rate, cfg, dtype,
+                               smoothing_slot_bound(sample_rate, cfg), HRV_CAPACITY)
+    sc = dict(zip(metrics_kernel.SCALARS, p.scalars))
+
+    def stats(name: str, found) -> SlopeStats:
+        return SlopeStats(found, *(sc[f"{name}.{f}"] for f in SlopeStats._fields[1:]))
+
+    def slope_list(k: int) -> SlopeList:
+        fields = dict(zip(metrics_kernel.LIST_FIELDS, p.slopes[k]))
+        return SlopeList(**fields, count=p.counts[2 + k])
+
+    return Metrics(
+        bpm=BpmSeries(times=p.series[0], smoothed=p.series[1], instant=p.series[2],
+                      count=p.counts[0]),
+        hrv=HrvResult(time=p.hrv[0], rmssdc=p.hrv[1], sdnn=p.hrv[2], bpm=p.hrv[3],
+                      count=p.counts[1]),
+        hrr=HrrStats(found=p.found[0], peak_bpm=sc["hrr.peak_bpm"],
+                     peak_time=sc["hrr.peak_time"], recovery_bpm=sc["hrr.recovery_bpm"],
+                     hrr=sc["hrr.hrr"]),
+        peak_exertion=stats("peak_exertion", p.found[1]),
+        peak_recovery=stats("peak_recovery", p.found[2]),
+        inclines=slope_list(0), declines=slope_list(1),
+        avg_bpm=sc["avg_bpm"], min_bpm=sc["min_bpm"], max_bpm=sc["max_bpm"],
+        avg_rmssdc=sc["avg_rmssdc"], avg_sdnn=sc["avg_sdnn"])
 
 
 def recovery_phase(bpm: BpmSeries, cfg: AnalyzerConfig):

@@ -426,6 +426,82 @@ def row_quantile_cases(n: int, seed: int = 0) -> list:
             ("envelope_prefix", smooth, prefix)]
 
 
+def _beat_row(intervals, cap: int, count=None, start: int = 150):
+    """(positions (cap,) int32, count) of beats ``intervals`` samples apart,
+    padded past the count with the last position + 1000 (a corrected row's
+    fill is the envelope's length)."""
+    pos = start + np.concatenate([[0], np.cumsum(np.asarray(intervals, np.int64))])
+    count = min(len(pos), cap) if count is None else count
+    row = np.full(cap, int(pos[min(count, len(pos)) - 1]) + 1000 if count else 1000, np.int32)
+    row[:count] = pos[:count]
+    return row, count
+
+
+def metrics_fleet_rows(rows: int, cap: int, sr: int = SR, seed: int = 0,
+                       seconds: float = 600):
+    """(positions (rows, cap) int32, count (rows,) int32): ``seconds`` of
+    beats a row (ten minutes by default) with the BPM wandering between ~70
+    and ~190 (a slow sine, a random walk and 3% jitter), as the main path's
+    corrected rows."""
+    rng = np.random.RandomState(seed)
+    pos, count = np.empty((rows, cap), np.int32), np.empty(rows, np.int32)
+    for r in range(rows):
+        t, iv = 0.0, []
+        period, phase, walk = rng.uniform(60, 240), rng.uniform(0, 6.3), 0.0
+        while t < seconds and len(iv) < cap - 1:
+            walk = np.clip(walk + rng.randn() * 1.5, -25, 25)
+            bpm = 125 + 45 * np.sin(2 * np.pi * t / period + phase) + walk
+            step = 60.0 / bpm * (1 + 0.03 * rng.randn())
+            t += step
+            iv.append(max(int(round(step * sr)), 15))
+        pos[r], count[r] = _beat_row(iv, cap)
+    return pos, count
+
+
+def metrics_cases(cap: int, seed: int = 0) -> list:
+    """(name, sample_rate, positions (rows, cap) int32, count (rows,) int32)
+    cases of the metrics kernel: counts 0, 1, 2, 39 (no HRV window), 41 and
+    the capacity; beats at one position (diffs of 0 s, dropped); at 256 Hz,
+    where beat times and BPM are exact binary fractions, piecewise-constant
+    BPM (plateaus of the smoothed curve, equal maxima) and a periodic
+    pattern (equal priorities inside one suppression window); jittered fast
+    beats (more than 256 plateau maxima: the work capacity truncates);
+    large slow swings (more than 64 peaks: the slope capacity truncates);
+    the vulpine recording's final beats, whole and cut; and fleet rows."""
+    rng = np.random.RandomState(seed)
+
+    def rows(*made):
+        return (np.stack([m[0] for m in made]).astype(np.int32),
+                np.array([m[1] for m in made], np.int32))
+
+    base = [int(x) for x in rng.randint(110, 190, size=cap)]
+    counts = rows(*(_beat_row(base, cap, c) for c in (0, 1, 2, 39, 41, min(cap, 600), cap)))
+    dup = list(base)
+    for k in range(5, cap - 1, 37):
+        dup[k] = 0
+    close = rows(_beat_row(dup, cap), _beat_row([0] * 3 + base[:300], cap),
+                 _beat_row([0] * (cap - 1), cap))
+    levels = (128, 96, 192, 160, 128, 64)
+    piece = [levels[(k // 40) % len(levels)] for k in range(cap)]
+    periodic = [(128, 128, 96, 96, 160, 112)[k % 6] for k in range(cap)]
+    flat = rows(_beat_row(piece, cap), _beat_row(periodic, cap),
+                _beat_row([128] * cap, cap), _beat_row(piece[::-1], cap, cap // 2))
+    jitter = rows(*(_beat_row(rng.randint(55, 110, size=cap), cap) for _ in range(3)))
+    t = np.arange(cap) * 0.45
+    swing = 60.0 / (125 + 55 * np.sin(2 * np.pi * t / 7.0)) * SR
+    swings = rows(_beat_row(np.maximum(np.round(swing), 15).astype(int), cap),
+                  _beat_row(np.maximum(np.round(swing * 1.3), 15).astype(int), cap))
+    vul = np.load(VULPINE)
+    final = np.asarray(vul["final_peaks"], np.int64)
+    v_rate = int(vul["sample_rate"])
+    vrow = lambda p: _beat_row(np.diff(p), cap, start=int(p[0]))  # noqa: E731
+    vulpine = rows(vrow(final[:cap]), vrow(final[100:400]), vrow(final[::2][:cap]))
+    return [("counts", SR, *counts), ("close_beats", SR, *close),
+            ("plateaus", 256, *flat), ("many_maxima", SR, *jitter),
+            ("many_peaks", SR, *swings), ("vulpine", v_rate, *vulpine),
+            ("fleet", SR, *metrics_fleet_rows(4, cap, SR, seed))]
+
+
 def rolling_quantile_cases(n: int, rows: int, seed: int = 0) -> list:
     """(name, x, window, qs, min_periods) cases of the rolling-quantile
     kernel: ``rows`` float64 rows of length ``n`` (cast by the caller) with
@@ -498,6 +574,64 @@ def same_values(got: torch.Tensor, exp: torch.Tensor) -> bool:
         return False
     ints = {torch.float32: torch.int32, torch.float64: torch.int64}[exp.dtype]
     return torch.equal(got[~nan].view(ints), exp[~nan].view(ints))
+
+
+def metrics_fields(m) -> dict:
+    """``analytics.Metrics`` as {"group.field": tensor}."""
+    out = {}
+    for name, val in m._asdict().items():
+        items = [(name, val)] if isinstance(val, torch.Tensor) else [
+            (f"{name}.{f}", x) for f, x in val._asdict().items()]
+        out.update(items)
+    return out
+
+
+def metrics_differ(got, exp) -> list:
+    """The fields of two ``Metrics`` that are not bit for bit equal (NaN
+    equal to NaN; integers and flags equal)."""
+    g, e = metrics_fields(got), metrics_fields(exp)
+    return [k for k in e if g[k].dtype != e[k].dtype or g[k].shape != e[k].shape
+            or not (same_values(g[k], e[k]) if e[k].is_floating_point()
+                    else torch.equal(g[k], e[k]))]
+
+
+def metrics_max_abs_err(got, exp) -> float:
+    """The largest absolute difference over the float fields of two
+    ``Metrics``, where both are numbers."""
+    g, e = metrics_fields(got), metrics_fields(exp)
+    err = 0.0
+    for k, x in e.items():
+        if x.is_floating_point():
+            ok = ~torch.isnan(x) & ~torch.isnan(g[k])
+            if bool(ok.any()):
+                err = max(err, float((g[k][ok].double() - x[ok].double()).abs().max()))
+    return err
+
+
+# An unbounded smoothing window (more than 128 slots, or not below the
+# capacity): the kernel sums each window in slot order, the plain version
+# differences a prefix sum, and their smoothed BPM differ by at most this
+# share of the value.  The prefix sums reach ~2e5 BPM at a capacity of 1536
+# (float32 ulp 0.016) and their rounding accumulates along the row, ~40
+# ulps as a random walk: ~1e-4 of a ~40-beat window's sum.  Measured on the
+# CPU at a capacity of 1536: 4.7e-5 in float32, 1.2e-13 in float64.
+METRICS_UNBOUNDED_RTOL = {torch.float32: 5e-4, torch.float64: 2e-12}
+
+
+def metrics_bound(bsz: int, cap: int, dtype) -> float:
+    """Least time of the metrics kernel on (bsz, cap) positions, in ms: its
+    bytes (positions and counts read, every output written once) at HBM
+    bandwidth.  Its dependent chains (the smoothing windows, the greedy
+    suppression walk, the prominence scans) are per block and overlap
+    across blocks."""
+    from bpm_analysis_tpu_torch.models import analytics
+    from bpm_analysis_tpu_torch.ops.cuda import metrics_kernel as mk
+
+    size = torch.finfo(dtype).bits // 8
+    reals = (3 * cap + 4 * analytics.HRV_CAPACITY + 2 * len(mk.LIST_FIELDS) * mk.SLOPES
+             + len(mk.SCALARS))
+    nbytes = bsz * (4 * cap + 4 + size * reals + 4 * 4 + 3)
+    return nbytes / PEAK_BYTES_S * 1e3
 
 
 def compare(got: torch.Tensor, exp: torch.Tensor, rtol=RTOL, atol=ATOL):
@@ -996,7 +1130,7 @@ def check_filter_cases(dev) -> float:
 # (``kernels/build.launches``); the block filter's phase entry points are
 # counted apart, under FILTER_PHASES.
 KERNELS = ("knot_quantile", "strided_quantile", "row_quantile", "rolling_quantile",
-           "classify_scan", "rhythm_scan", "block_filter")
+           "classify_scan", "rhythm_scan", "block_filter", "metrics")
 FILTER_PHASES = ("block_filter_contributions", "block_filter_carry", "block_filter_apply")
 
 
@@ -1017,8 +1151,8 @@ def read_launches(names=KERNELS) -> dict:
 # floor's quantile kernel twice (the knot or strided kernel at stride 64, the
 # rolling-quantile kernel at stride 1: draft and final floor), and the row
 # quantile four times (three global quantiles of the noise floor, the raw
-# peaks' prominence).
-PER_BATCH = {"classify_scan": 2, "rhythm_scan": 1, "row_quantile": 4}
+# peaks' prominence), and the metrics stage once.
+PER_BATCH = {"classify_scan": 2, "rhythm_scan": 1, "row_quantile": 4, "metrics": 1}
 AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, "rolling_quantile": 0,
                  **PER_BATCH, "block_filter": 2}
 PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, "rolling_quantile": 0,
@@ -1063,6 +1197,67 @@ def build_all() -> dict:
 
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         return dict(zip(KERNELS, pool.map(timed, KERNELS)))
+
+
+def check_metrics_cases(dev) -> None:
+    """The metrics kernel against its plain version on the card, every field
+    bit for bit, on ``metrics_cases`` at the fleet's and native-44k's
+    capacities in float32 and float64, one launch a call."""
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.kernels import build
+    from bpm_analysis_tpu_torch.models import analytics
+
+    cfg = AnalyzerConfig()
+    for cap in (1536, 3072):
+        for name, sr, pos, cnt in metrics_cases(cap):
+            p, c = torch.from_numpy(pos).to(dev), torch.from_numpy(cnt).to(dev)
+            for dtype in (torch.float32, torch.float64):
+                before = build.launches["metrics"]
+                got = analytics.compute_metrics(p, c, sr, cfg, dtype)
+                check(build.launches["metrics"] == before + 1,
+                      f"metrics case {name}: {build.launches['metrics'] - before} launches")
+                bad = metrics_differ(got, analytics.compute_metrics_plain(p, c, sr, cfg, dtype))
+                check(not bad, f"metrics kernel differs from its plain version on {name} "
+                               f"(cap {cap}, {dtype}): {bad}")
+    log(f"  metrics kernel vs plain: {len(metrics_cases(1536))} cases at caps 1536 and 3072, "
+        f"float32 and float64: every field equal, one launch a call")
+
+
+def time_metrics(card, calls) -> dict:
+    """The metrics kernel against its plain version on the main path's own
+    call, then timed at the fleet cell's shape (512 rows of cap 1536,
+    float32) beside its bytes bound and the plain version."""
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.models import analytics
+
+    err = 0.0
+    for a, k in calls:
+        got, exp = analytics.compute_metrics(*a, **k), analytics.compute_metrics_plain(*a, **k)
+        bad = metrics_differ(got, exp)
+        check(not bad, f"metrics kernel differs from its plain version on the main path: {bad}")
+        err = max(err, metrics_max_abs_err(got, exp))
+    cfg = AnalyzerConfig(runtime=engine_config().runtime)
+    pos, cnt = metrics_fleet_rows(512, 1536, SR, seed=1)
+    p, c = torch.from_numpy(pos).cuda(), torch.from_numpy(cnt).cuda()
+    got = analytics.compute_metrics(p, c, SR, cfg, torch.float32)
+    exp = analytics.compute_metrics_plain(p, c, SR, cfg, torch.float32)
+    bad = metrics_differ(got, exp)
+    check(not bad, f"metrics kernel differs from its plain version at (512, 1536): {bad}")
+    err = max(err, metrics_max_abs_err(got, exp))
+    m_ms = device_ms(lambda: analytics.compute_metrics(p, c, SR, cfg, torch.float32), 20)
+    m_paced = cuda_ms(lambda: analytics.compute_metrics(p, c, SR, cfg, torch.float32), 20)
+    m_plain = cuda_ms(lambda: analytics.compute_metrics_plain(p, c, SR, cfg, torch.float32), 2)
+    m_bound = metrics_bound(512, 1536, torch.float32)
+    log(f"metrics kernel at the fleet shape (512, 1536) float32: every field equal (max abs "
+        f"err {err}); "
+        f"{m_ms:.4f} ms queued ({m_paced:.4f} ms a call issued back to back), bound "
+        f"{m_bound:.5f} ms by bytes ({100 * m_bound / m_ms:.1f}% of it), plain "
+        f"{m_plain:.1f} ms, on {card}")
+    return {"name": "metrics", "route": "cuda",
+            "source": "bpm_analysis_tpu_torch/csrc/metrics.cu",
+            "replaces": "bpm_analysis_tpu/models/analytics.py compute_metrics",
+            "max_abs_err": err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def check_knot_cases(dev) -> float:
@@ -1987,8 +2182,9 @@ def main() -> int:
     from bpm_analysis_tpu_torch.models import classifier, corrections
     from bpm_analysis_tpu_torch.ops import filter as filt
     from bpm_analysis_tpu_torch.ops import quantile
+    from bpm_analysis_tpu_torch.models import analytics
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 quantile_kernel, rhythm_kernel,
+                                                 metrics_kernel, quantile_kernel, rhythm_kernel,
                                                  rolling_quantile_kernel, row_quantile_kernel)
 
     dev = torch.device("cuda")
@@ -2016,7 +2212,8 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = build_all()
     for wrapper in (knot_kernel, quantile_kernel, row_quantile_kernel,
-                    rolling_quantile_kernel, classify_kernel, rhythm_kernel, filter_kernel):
+                    rolling_quantile_kernel, classify_kernel, rhythm_kernel, filter_kernel,
+                    metrics_kernel):
         wrapper.LIBRARY.load()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
@@ -2045,6 +2242,7 @@ def main() -> int:
     rolling_err = check_rolling_quantile_cases(dev)
     classify_err, rhythm_err = check_scan_cases(dev)
     filter_err = check_filter_cases(dev)
+    check_metrics_cases(dev)
     log(f"phase 3 kernels vs plain: ok (knot rtol {RTOL} atol {ATOL}; strided rtol "
         f"{STRIDED_RTOL}; scans equal)")
 
@@ -2061,7 +2259,9 @@ def main() -> int:
     log(f"first run (cold): {time.perf_counter() - t0:.2f}s")
 
     captured, c_captured, r_captured, f_captured, q_captured = [], [], [], [], []
+    m_captured = []
     res, launches = counted_run(batch, cfg, {
+        (analytics, "compute_metrics"): m_captured,
         (row_quantile_kernel, "quantile_exact"): q_captured,
         (knot_kernel, "knot_quantile_anchors"): captured,
         (classifier, "classify_scan"): c_captured,
@@ -2190,6 +2390,7 @@ def main() -> int:
             f"library (torch.nanquantile by rows) {q_library_ms:.3f} ms, max abs err {q_err} "
             f"on {card}")
     log(f"  the path's {len(q_captured)} row-quantile calls at {tuple(env16.shape)}: equal")
+    metrics_row = {**time_metrics(card, m_captured), "launches": launches["metrics"]}
     log("phase 4 main path: ok")
 
     # ---- 5. accuracy against the CPU reference -----------------------------
@@ -2328,7 +2529,7 @@ def main() -> int:
         "bound_ms": f_bound_ms,
         "bound_by": f_bound_by,
         "library_ms": None,
-    }]}
+    }, metrics_row]}
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

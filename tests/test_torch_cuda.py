@@ -1,6 +1,6 @@
 """The CUDA kernels (knot quantile, strided quantile, row quantile, rolling
 quantile, classifier scan, rhythm scan, blocked filter and its phase entry
-points) against their plain versions, on the card.
+points, metrics) against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The machine
 with the card has no JAX, so run these without the suite's conftest (which
@@ -18,7 +18,7 @@ from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
 from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                             quantile_kernel, rhythm_kernel,
+                                             metrics_kernel, quantile_kernel, rhythm_kernel,
                                              rolling_quantile_kernel, row_quantile_kernel)
 
 CASES = chip_smoke.kernel_cases()
@@ -497,6 +497,140 @@ def test_batched_host_on_the_card_equals_the_cpu(tmp_path, monkeypatch):
         assert count > 40 and int(card[p].final_count) == count
         np.testing.assert_array_equal(card[p].final_positions[:count],
                                       cpu[p].final_positions[:count])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1536, 3072])
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.metrics_cases(1536)])
+def test_metrics_kernel_matches_plain_version_on_the_cases(case, cap):
+    """``chip_smoke.metrics_cases`` (the CPU emulation's cases) at the fleet's
+    and native-44k's capacities, float32 and float64: every field bit for
+    bit, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.models import analytics
+
+    _, sr, pos, cnt = next(c for c in chip_smoke.metrics_cases(cap) if c[0] == case)
+    p, c = torch.from_numpy(pos).cuda(), torch.from_numpy(cnt).cuda()
+    cfg = AnalyzerConfig()
+    for dtype in (torch.float32, torch.float64):
+        before = build.launches["metrics"]
+        got = analytics.compute_metrics(p, c, sr, cfg, dtype)
+        assert build.launches["metrics"] == before + 1
+        assert chip_smoke.metrics_differ(
+            got, analytics.compute_metrics_plain(p, c, sr, cfg, dtype)) == [], (case, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config, dtype, rows", [
+    ("engine-302hz", torch.float32, 1), ("engine-302hz", torch.float32, 16),
+    ("engine-302hz", torch.float32, 512), ("exact-f64", torch.float64, 256),
+    ("native-44k", torch.float32, 16)])
+def test_metrics_kernel_matches_plain_version_at_the_cells_shapes(config, dtype, rows):
+    """Fleet rows at each cell's capacity and dtype (B = 1, 16 and 512 in
+    float32, 256 in float64, native-44k's capacity of 3072): every field bit
+    for bit against the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bench_port import core
+    from bpm_analysis_tpu_torch.models import analytics
+
+    cfg = core.program_config(core.load_json(core.HERE, "configs", f"{config}.json")["runtime"])
+    cap = cfg.runtime.max_candidates
+    pos, cnt = chip_smoke.metrics_fleet_rows(rows, cap, chip_smoke.SR, seed=rows)
+    p, c = torch.from_numpy(pos).cuda(), torch.from_numpy(cnt).cuda()
+    assert analytics.smoothing_slot_bound(chip_smoke.SR, cfg) < cap   # the bounded window
+    got = analytics.compute_metrics(p, c, chip_smoke.SR, cfg, dtype)
+    assert chip_smoke.metrics_differ(
+        got, analytics.compute_metrics_plain(p, c, chip_smoke.SR, cfg, dtype)) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, cap", [(torch.float64, 4608), (torch.float64, 8192),
+                                        (torch.float32, 12288), (torch.float32, 16384)])
+def test_metrics_kernel_matches_plain_version_past_shared_memory(dtype, cap, monkeypatch):
+    """Capacities whose rows do not fit a block's shared memory, as the
+    overflow retry's doubled capacities reach: the row's arrays in global
+    scratch, 3 blocks looping over 8 rows of up to ~70 minutes of beats;
+    every field bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.models import analytics
+
+    size = torch.finfo(dtype).bits // 8
+    per_block = metrics_kernel.LIBRARY.load().metrics_scratch_bytes(
+        cap, analytics.HRV_CAPACITY, size)
+    assert per_block > 0
+    monkeypatch.setattr(metrics_kernel, "SCRATCH_BYTES", 3 * per_block)
+    pos, cnt = chip_smoke.metrics_fleet_rows(8, cap, chip_smoke.SR, seed=cap,
+                                             seconds=cap * 0.5)
+    p, c = torch.from_numpy(pos).cuda(), torch.from_numpy(cnt).cuda()
+    cfg = AnalyzerConfig()
+    got = analytics.compute_metrics(p, c, chip_smoke.SR, cfg, dtype)
+    assert chip_smoke.metrics_differ(
+        got, analytics.compute_metrics_plain(p, c, chip_smoke.SR, cfg, dtype)) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fine, cap", [(True, 1536), (False, 40)],
+                         ids=["past_128_slots", "window_past_cap"])
+def test_metrics_kernel_with_an_unbounded_window(fine, cap, dtype, monkeypatch):
+    """A smoothing window of more than 128 slots (beats allowed 10 ms apart)
+    or not below the capacity: every field bit for bit against the plain
+    version's bounded form at M = cap - 1, and the smoothed BPM within
+    ``chip_smoke.METRICS_UNBOUNDED_RTOL`` of its prefix-sum form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.models import analytics
+
+    cfg = AnalyzerConfig()
+    if fine:
+        cfg = dataclasses.replace(cfg, features=dataclasses.replace(
+            cfg.features, min_peak_distance_sec=0.01))
+    sr = chip_smoke.SR
+    bound = analytics.smoothing_slot_bound(sr, cfg)
+    assert bound is None or bound >= cap
+    pos, cnt = chip_smoke.metrics_fleet_rows(16, cap, sr, seed=cap)
+    p, c = torch.from_numpy(pos).cuda(), torch.from_numpy(cnt).cuda()
+    got = analytics.compute_metrics(p, c, sr, cfg, dtype)
+    prefix = analytics.compute_metrics_plain(p, c, sr, cfg, dtype)
+    monkeypatch.setattr(analytics, "smoothing_slot_bound", lambda *a: cap - 1)
+    bounded = analytics.compute_metrics_plain(p, c, sr, cfg, dtype)
+    assert chip_smoke.metrics_differ(got, bounded) == []
+    g, e = got.bpm.smoothed, prefix.bpm.smoothed
+    assert torch.equal(torch.isnan(g), torch.isnan(e))
+    ok = ~torch.isnan(e)
+    rtol = chip_smoke.METRICS_UNBOUNDED_RTOL[dtype]
+    assert bool(((g[ok] - e[ok]).abs() <= rtol * e[ok].abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window", [100, 300])
+def test_metrics_kernel_with_wide_hrv_windows(window, dtype):
+    """HRV windows past 64 intervals: every field bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig
+    from bpm_analysis_tpu_torch.models import analytics
+
+    cfg = AnalyzerConfig()
+    cfg = dataclasses.replace(cfg, output=dataclasses.replace(
+        cfg.output, hrv_window_size_beats=window, hrv_step_size_beats=window // 8))
+    pos, cnt = chip_smoke.metrics_fleet_rows(16, 1536, chip_smoke.SR, seed=window)
+    p, c = torch.from_numpy(pos).cuda(), torch.from_numpy(cnt).cuda()
+    got = analytics.compute_metrics(p, c, chip_smoke.SR, cfg, dtype)
+    assert int(got.hrv.count.min()) > 0
+    assert chip_smoke.metrics_differ(
+        got, analytics.compute_metrics_plain(p, c, chip_smoke.SR, cfg, dtype)) == []
 
 
 @pytest.mark.gpu

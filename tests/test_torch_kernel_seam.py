@@ -33,6 +33,7 @@ DISPATCHER = {
     "filter_kernel": "ops.filter",
     "rhythm_kernel": "models.corrections",
     "classify_kernel": "models.classifier",
+    "metrics_kernel": "models.analytics",
 }
 
 
