@@ -24,11 +24,12 @@
 // on the card:
 //
 // * The same operations in the same order, each rounded once
-//   (--fmad=false keeps a multiply and an add apart).  A division by a
-//   Python number on the card is a multiply by the reciprocal the host
-//   rounds to the dtype (ATen's div_true_kernel_cuda), so the wrapper hands
-//   those reciprocals over (1 / rate, 1 / w, 1 / (w - 1), 1 / 1000);
-//   `60 / x` is torch's x.reciprocal() * 60; tensor divisions are div.rn.
+//   (--fmad=false keeps a multiply and an add apart).  The plain version
+//   divides by the sample rate, the HRV window's w and w - 1 and 1000 as
+//   tensors on the row's device, so that the card rounds as the CPU does
+//   (a CUDA tensor over a Python number is a multiply by its reciprocal),
+//   and the kernel divides by them too; `60 / x` is torch's
+//   x.reciprocal() * 60; every division is div.rn.
 // * Sums with a fixed association: the smoothing's window sum adds the
 //   window's slots in ascending order from 0 (rolling._window_sum's shifted
 //   adds, whose out-of-window terms add 0); series.fixed_order_sum's
@@ -78,9 +79,8 @@ static_assert(kThreads == kWork, "one thread a work slot in the compactions");
 
 struct Params {
   int cap, max_slots, hrv_window, hrv_step, hrv_cap, truncated_interp;
-  double inv_rate, half_window, min_diff, inv_hrv_window, inv_hrv_window1, inv_1000,
-      slope_window, hrr_interval, interp_eps, distance_num, min_duration, min_change,
-      prominence;
+  double rate, half_window, min_diff, slope_window, hrr_interval, interp_eps, distance_num,
+      min_duration, min_change, prominence;
 };
 
 template <typename T> struct Num;
@@ -359,7 +359,7 @@ __device__ __forceinline__ void metrics_row(
   // --- bpm_series: beat times, the valid diffs compacted in order --------
   for (int i = tid; i < cap; i += kThreads) {
     const int pos = i < cnt ? positions[(size_t)row * cap + i] : INT32_MAX;
-    s_t[i] = T(pos) * T(p.inv_rate);
+    s_t[i] = T(pos) / T(p.rate);
   }
   __syncthreads();
   const T min_diff = T(p.min_diff);
@@ -420,8 +420,7 @@ __device__ __forceinline__ void metrics_row(
   {
     const int w = p.hrv_window, step = p.hrv_step;
     const int n_rr = max(cnt - 1, 0);
-    const T k1000 = T(1000.0), inv_w = T(p.inv_hrv_window), inv_w1 = T(p.inv_hrv_window1);
-    const T inv_1000 = T(p.inv_1000);
+    const T k1000 = T(1000.0), kw = T(w), kw1 = T(w - 1);
     auto rr = [&](int k) {   // rr_ms[clamp(k, 0, cap - 2)]
       k = min(max(k, 0), cap - 2);
       return (s_t[k + 1] - s_t[k]) * k1000;
@@ -440,7 +439,7 @@ __device__ __forceinline__ void metrics_row(
         continue;
       }
       const T s1 = warp_tree<T>(w, [&](int j) { return rr(start + j); }, lane);
-      const T mean = __shfl_sync(kFull, s1, 0) * inv_w;
+      const T mean = __shfl_sync(kFull, s1, 0) / kw;
       const T s2 = warp_tree<T>(w, [&](int j) {
         const T d = rr(start + j) - mean;
         return d * d;
@@ -450,9 +449,9 @@ __device__ __forceinline__ void metrics_row(
         return d * d;
       }, lane);
       if (lane == 0) {
-        const T sdnn = sqrt(s2 * inv_w);
-        const T rmssd = sqrt(s3 * inv_w1);
-        const T msec = mean * inv_1000;
+        const T sdnn = sqrt(s2 / kw);
+        const T rmssd = sqrt(s3 / kw1);
+        const T msec = mean / k1000;
         const T rmssdc = msec > T(0) ? rmssd / msec : T(0);
         const T wbpm = msec > T(0) ? (T(1) / msec) * T(60) : T(0);
         const T mid = (s_t[min(start, cap - 1)] + s_t[min(start + w, cap - 1)]) * T(0.5);
@@ -847,19 +846,16 @@ int launch(const int32_t* positions, const int32_t* count, const int* ints, cons
   p.hrv_step = ints[3];
   p.hrv_cap = ints[4];
   p.truncated_interp = ints[5];
-  p.inv_rate = reals[0];
+  p.rate = reals[0];
   p.half_window = reals[1];
   p.min_diff = reals[2];
-  p.inv_hrv_window = reals[3];
-  p.inv_hrv_window1 = reals[4];
-  p.inv_1000 = reals[5];
-  p.slope_window = reals[6];
-  p.hrr_interval = reals[7];
-  p.interp_eps = reals[8];
-  p.distance_num = reals[9];
-  p.min_duration = reals[10];
-  p.min_change = reals[11];
-  p.prominence = reals[12];
+  p.slope_window = reals[3];
+  p.hrr_interval = reals[4];
+  p.interp_eps = reals[5];
+  p.distance_num = reals[6];
+  p.min_duration = reals[7];
+  p.min_change = reals[8];
+  p.prominence = reals[9];
   if (bsz <= 0 || p.cap < 2 || p.hrv_window < 1 || p.hrv_cap < 1 ||
       p.max_slots >= p.cap)
     return (int)cudaErrorInvalidValue;

@@ -91,6 +91,15 @@ def _nan_like(x: torch.Tensor) -> torch.Tensor:
     return torch.full_like(x, float("nan"))
 
 
+def _divisor(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a 0-dim tensor in ``like``'s dtype and on its device.  A CUDA
+    tensor over a Python number is a multiply by the number's reciprocal,
+    over a device tensor an IEEE division, as on the CPU: so a beat time
+    rounds alike on both, and one on a smoothing window's edge keeps its
+    side."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
 def smoothing_slot_bound(sample_rate: int, cfg: AnalyzerConfig) -> int | None:
     """Slots in half the BPM smoothing window at most (beat times are >= the
     peak-finder NMS distance apart, which bounds the window's slot span), or
@@ -110,7 +119,8 @@ def bpm_series(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
     count = count.long()[:, None]
     slot = arange(cap, positions)[None, :]
     pos = torch.where(slot < count, positions.long(), torch.iinfo(torch.int32).max)
-    t = pos.to(dtype) / sample_rate
+    t = pos.to(dtype)
+    t = t / _divisor(sample_rate, t)
     diffs = t[:, 1:] - t[:, :-1]
     dvalid = (slot[:, :-1] < count - 1) & (diffs > 1e-6)
     inst = 60.0 / torch.where(dvalid, diffs, torch.ones_like(diffs))
@@ -320,7 +330,8 @@ def windowed_hrv(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
     bsz, cap = positions.shape
     count = count.long()[:, None]
     slot = arange(cap, positions)[None, :]
-    t = torch.where(slot < count, positions.long(), 0).to(dtype) / sample_rate
+    t = torch.where(slot < count, positions.long(), 0).to(dtype)
+    t = t / _divisor(sample_rate, t)
     rr_ms = (t[:, 1:] - t[:, :-1]) * 1000.0
 
     n_rr = torch.clamp(count - 1, min=0)
@@ -329,11 +340,11 @@ def windowed_hrv(positions: torch.Tensor, count: torch.Tensor, sample_rate: int,
     idx = torch.clamp(starts[:, :, None] + arange(w, positions)[None, None, :], 0, cap - 2)
     win = take(rr_ms, idx.expand(bsz, -1, -1))             # (B, capacity, w)
     # Fixed-order sums: the same bits for a recording whatever the batch.
-    mean_rr = series.fixed_order_sum(win) / w
-    sdnn = torch.sqrt(series.fixed_order_sum((win - mean_rr[..., None]) ** 2) / w)
+    mean_rr = series.fixed_order_sum(win) / _divisor(w, t)
+    sdnn = torch.sqrt(series.fixed_order_sum((win - mean_rr[..., None]) ** 2) / _divisor(w, t))
     sd = win[:, :, 1:] - win[:, :, :-1]
-    rmssd = torch.sqrt(series.fixed_order_sum(sd ** 2) / (w - 1))
-    mean_rr_sec = mean_rr / 1000.0
+    rmssd = torch.sqrt(series.fixed_order_sum(sd ** 2) / _divisor(w - 1, t))
+    mean_rr_sec = mean_rr / _divisor(1000.0, t)
     rmssdc = torch.where(mean_rr_sec > 0, rmssd / mean_rr_sec, torch.zeros_like(rmssd))
     wbpm = torch.where(mean_rr_sec > 0, 60.0 / mean_rr_sec, torch.zeros_like(mean_rr_sec))
     starts_b = starts.expand(bsz, -1)

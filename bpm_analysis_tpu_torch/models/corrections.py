@@ -30,7 +30,7 @@ from ..ops.cuda import rhythm_kernel
 from ..ops.find_peaks import compact_slots
 from ..ops.indexing import arange, scatter_drop, take
 from .. import types
-from ..utils.profiling import host_read
+from ..utils.profiling import host_read, span
 
 
 class CorrectionResult(NamedTuple):
@@ -309,8 +309,9 @@ def refine_and_correct(s1_pos, s1_count, raw_pos, raw_count, classes,
     for _ in range(cfg.correction.max_iterations):
         if not host_read("fix", still_active.any()):      # one host read per iteration
             break
-        new_pos, new_count, new_classes, corrections, new_ovf = _fix_iteration(
-            pos, count, cand, rcap, classes, envelope, floor, sample_rate, cfg)
+        with span("bpm.fix.round"):
+            new_pos, new_count, new_classes, corrections, new_ovf = _fix_iteration(
+                pos, count, cand, rcap, classes, envelope, floor, sample_rate, cfg)
         take_ = still_active
         pos = torch.where(take_[:, None], new_pos, pos)
         count = torch.where(take_, new_count, count)

@@ -55,12 +55,6 @@ class Planes(NamedTuple):
     found: torch.Tensor     # (3, B) bool: hrr, peak_exertion, peak_recovery
 
 
-def _reciprocal(x: float, np_dtype) -> float:
-    """``1 / x`` rounded to the dtype, as ATen divides a CUDA tensor by a
-    Python number: a multiply by this reciprocal."""
-    return float(np_dtype(1.0) / np_dtype(x))
-
-
 def compute(positions: torch.Tensor, count: torch.Tensor, sample_rate: int, cfg, dtype,
             max_window_slots: int | None, hrv_capacity: int) -> Planes:
     """Every metric of each row's first ``count`` beat ``positions`` (B, cap)
@@ -98,10 +92,9 @@ def compute(positions: torch.Tensor, count: torch.Tensor, sample_rate: int, cfg,
     ints = (ctypes.c_int * 6)(cap, max_window_slots if bounded else -1, w,
                               o.hrv_step_size_beats, hrv_capacity,
                               int(bool(cfg.compat.hrr_truncated_interp)))
-    reals = (ctypes.c_double * 13)(
-        _reciprocal(sample_rate, npd), o.output_smoothing_window_sec / 2.0, 1e-6,
-        _reciprocal(w, npd), _reciprocal(w - 1, npd) if w > 1 else float("inf"),
-        _reciprocal(1000.0, npd), o.slope_window_sec, o.hrr_interval_sec,
+    reals = (ctypes.c_double * 10)(
+        sample_rate, o.output_smoothing_window_sec / 2.0, 1e-6,
+        o.slope_window_sec, o.hrr_interval_sec,
         float(np.spacing(np.finfo(npd).eps)), o.incline_min_duration_sec / 2,
         o.incline_min_duration_sec, o.incline_min_bpm_change, o.slope_peak_prominence)
     per_block = LIBRARY.load().metrics_scratch_bytes(cap, hrv_capacity, npd().itemsize)

@@ -30,7 +30,7 @@ import torch
 from .indexing import arange, scatter_drop, take
 from .quantile import _sortable_key
 from ..device import upload
-from ..utils.profiling import host_read
+from ..utils.profiling import host_read, span
 
 
 class Peaks(NamedTuple):
@@ -516,7 +516,8 @@ def _select_by_distance(positions: torch.Tensor, priority: torch.Tensor,
     keep = torch.zeros_like(valid)
     alive = valid
     while host_read("nms", alive.any()):      # one host sync per round
-        keep, alive = body(keep, alive)
+        with span("bpm.nms.round"):
+            keep, alive = body(keep, alive)
     return keep & valid
 
 

@@ -103,7 +103,17 @@ the seconds since start:
    chunk of 16 (equal positions and CSV: a recording's result does not
    depend on its batch); and ``utils.profiling.device_trace`` around
    both quantile kernels, with their CUDA times from the trace beside the
-   CUDA-event times.
+   CUDA-event times;
+11. the stress deployment: the 128 recordings of
+   ``synth.synth_stress_recording`` (clipping, dropouts, 40 BPM, 165 BPM
+   with noise bursts, cycled by id) through the main path at
+   ``bench_port/configs/engine-stress-302hz.json``'s capacities (4096 raw
+   peaks and troughs, 2048 candidates, 40,960 extrema): launch counts, no
+   row overflowed, the knot kernel, the row quantile, both classifier
+   passes, the rhythm scan and the metrics kernel against their plain
+   versions on the path's own inputs, the accuracy gates against
+   ``bench_cpu_stress.json``, the kernels' times, the warm wall time and
+   the span table.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result.  Any failing phase exits non-zero before the result line; without a
@@ -205,6 +215,8 @@ SP_QUANTILE = dict(window=3020, q=0.3, min_periods=3, stride=64)
 DIVISION_PAIRS = 1 << 28
 REPO = os.path.dirname(os.path.abspath(__file__))
 VULPINE = os.path.join(REPO, "tests", "golden", "vulpine_oracle.npz")
+STRESS_CONFIG = os.path.join(REPO, "bench_port", "configs", "engine-stress-302hz.json")
+STRESS_IDS = list(range(128))  # the answered stress pool, four families cycled by id
 ARTIFACTS = ("_bpm_plot.csv", "_bpm_plot.html", "_Analysis_Summary.md", "_Debug_Log.md",
              "_Analysis_Settings.json", "_filtered_debug.wav")
 
@@ -1506,6 +1518,107 @@ def check_card_vs_cpu(batch, cfg, curves, label):
         check(f1 >= 0.99, f"{label}: card vs CPU beat F1 {f1} < 0.99 on recording {s}")
 
 
+def stress_config():
+    """``engine-stress-302hz``'s runtime, read from its benchmark file: the
+    fleet engine at the out-of-family recordings' capacities."""
+    from bpm_analysis_tpu_torch.config import AnalyzerConfig, RuntimeConfig
+
+    with open(STRESS_CONFIG) as f:
+        return AnalyzerConfig(runtime=RuntimeConfig(**json.load(f)["runtime"]))
+
+
+def check_stress(card, clock_hz: float) -> None:
+    """Phase 11: the whole stress pool (``synth.synth_stress_recording``,
+    ids 0-127, 32 a family) through the main path at
+    ``engine-stress-302hz``'s sizing.  Launch counts, no row overflowed,
+    each kernel against its plain version on the path's own inputs at these
+    capacities (the knot kernel within rtol/atol, the row quantile, both
+    classifier passes, the rhythm scan and the metrics kernel equal), the
+    accuracy gates against ``bench_cpu_stress.json``, the kernels' times,
+    the warm wall time and the span table."""
+    from bpm_analysis_tpu_torch import synth
+    from bpm_analysis_tpu_torch.accuracy import result_curves
+    from bpm_analysis_tpu_torch.models import analytics, classifier, corrections
+    from bpm_analysis_tpu_torch.ops import knot_quantile as kq
+    from bpm_analysis_tpu_torch.ops import quantile
+    from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, row_quantile_kernel
+
+    t_phase = time.perf_counter()
+    cfg = stress_config()
+    rows = np.stack([synth._quantize_int16(synth.synth_stress_recording(s))
+                     for s in STRESS_IDS]).astype(np.float32)
+    run_main_path(rows, cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"  stress pool {rows.shape} synthesized and run cold in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    k_calls, q_calls, c_calls, r_calls, m_calls = [], [], [], [], []
+    res, launches = counted_run(rows, cfg, {
+        (analytics, "compute_metrics"): m_calls,
+        (row_quantile_kernel, "quantile_exact"): q_calls,
+        (knot_kernel, "knot_quantile_anchors"): k_calls,
+        (classifier, "classify_scan"): c_calls,
+        (corrections, "rhythm_scan"): r_calls})
+    log(f"  kernel launches on the stress pool: {launches}")
+    check(launches == AUTO_LAUNCHES, f"stress: expected {AUTO_LAUNCHES}, got {launches}")
+    overflowed = res.overflowed.cpu().numpy()
+    final_count = res.final_count.cpu().numpy()
+    families = {f: final_count[f::4] for f in range(4)}
+    log("  final beats per family (clipping, dropouts, 40 BPM, 165 BPM): "
+        + ", ".join(f"{c.min()}-{c.max()}" for c in families.values())
+        + f"; overflowed {int(overflowed.sum())}, not ok {int((~res.ok).sum())}")
+    check(not overflowed.any(), f"stress: a capacity truncated events on rows "
+                                f"{np.nonzero(overflowed)[0].tolist()}")
+    check(bool(res.ok.all()), "stress: a row is not ok")
+
+    real_anchors = knot_kernel.knot_quantile_anchors
+    for label, (a, k) in zip(("draft floor", "final floor"), k_calls):
+        got = real_anchors(*a, **k)
+        err, rel, ok = compare(got, kq.rolling_quantile_knots(*a, **k, dtype=torch.float32))
+        log(f"  knot kernel vs plain [stress, {label}] {tuple(a[0].shape)} -> "
+            f"{tuple(got.shape)}: max abs err {err:.3g}, max rel err {rel:.3g}")
+        check(ok, f"stress: knot kernel disagrees with its plain version on the {label}")
+    k_ms = cuda_ms(lambda: real_anchors(*a, **k), 20)
+    real_quantile = row_quantile_kernel.quantile_exact
+    for a, k in q_calls:
+        check(same_values(real_quantile(*a, **k), quantile.quantile_exact_plain(*a, **k)),
+              "stress: row-quantile kernel differs from its plain version")
+    real_classify = classifier.classify_scan
+    c_ms = {}
+    for label, (a, k) in zip(("preliminary", "main"), c_calls):
+        got = real_classify(*a, **k)
+        exp, plain_ms = once_ms(lambda: classifier.scan_plain(a[0], *a[2:], **k))
+        err = trace_error(got, exp)
+        check(err == 0, f"stress: classify kernel differs from its plain version on the "
+                        f"{label} pass (max abs err {err})")
+        c_ms[label] = (cuda_ms(lambda: real_classify(*a, **k), 20),
+                       scan_bound(a[0], k["want_trace"], clock_hz)[0], plain_ms)
+    a, k = r_calls[-1]
+    err = rhythm_error(corrections.rhythm_scan(*a, **k),
+                       corrections.rhythm_scan_plain(*a[:4], a[5]))
+    check(err == 0, "stress: rhythm kernel differs from its plain version")
+    r_shape = tuple(a[0].shape)
+    for a, k in m_calls:
+        bad = metrics_differ(analytics.compute_metrics(*a, **k),
+                             analytics.compute_metrics_plain(*a, **k))
+        check(not bad, f"stress: metrics kernel differs from its plain version: {bad}")
+    m_ms = device_ms(lambda: analytics.compute_metrics(*a, **k), 20)
+    log(f"  stress kernels vs plain: knot, {len(q_calls)} row quantiles, both classifier "
+        f"passes, rhythm {r_shape} and metrics {tuple(a[0].shape)} equal; knot {k_ms:.4f} ms, "
+        + ", ".join(f"classify {p} {ms:.4f} ms (bound {b:.5f} ms, plain {pl:.1f} ms)"
+                    for p, (ms, b, pl) in c_ms.items())
+        + f", metrics {m_ms:.4f} ms queued, on {card}")
+
+    with open(os.path.join(REPO, "bench_cpu_stress.json")) as f:
+        gate_curves(result_curves(res, SR), json.load(f)["per_seed"], STRESS_IDS,
+                    "phase 11 stress")
+    best = warm_best(rows, cfg, 2)
+    log(f"  stress warm wall time (best of 2): {best:.3f}s = "
+        f"{len(STRESS_IDS) * synth.MINUTES / best:.2f} audio-min/s on {card}")
+    log("  stress stage spans (traced run): " + stage_spans(rows, cfg))
+    log(f"phase 11 stress deployment: ok in {time.perf_counter() - t_phase:.1f}s")
+
+
 def check_vulpine_default(card, dev):
     """The default configuration (stride 1, wavelet tree) in float64 on the
     vulpine recording, with the extrema and the dense prominence backends:
@@ -2460,6 +2573,9 @@ def main() -> int:
         dp_launches = check_scale_out(card, cfg, batch, res, best, oracle, host_run,
                                       (real_anchors, knot_call),
                                       (real_strided, strided_call), tmp)
+
+    # ---- 11. the stress deployment ---------------------------------------------
+    check_stress(card, clock_hz)
 
     table = {"kernels": [{
         "name": "knot_quantile",

@@ -10,7 +10,10 @@ peaks), and rows built from them to reach the scan's edges: a neighbour
 inside the conflict distance of every third beat, alternately before it
 and quieter (the beat replaces it) and after it, quieter or exactly as loud
 (it is dropped); an unsorted row (reversed) and one with adjacent beats swapped; counts
-0-6 (stage 4 skips rows below 5).  Final positions and counts are equal.
+0-6 (stage 4 skips rows below 5); and a row whose one short interval is exactly 0.40 x its
+median RR (44 and 110 samples at 302 Hz: the tie of the stress pool's id 71, ROADMAP C8),
+which float32 rounds below the threshold (the quieter beat is dropped) and float64 does not.
+Final positions and counts are equal.
 """
 import numpy as np
 import jax
@@ -26,6 +29,7 @@ from test_torch_scan_kernels import SR, correction_inputs
 torch.set_num_threads(1)
 
 NEAR = 70     # samples: inside 0.4 x these recordings' median RR (~0.6 s)
+TIE_RR, TIE_SHORT = 110, 44     # samples: 44 / 302 equals 0.40 x 110 / 302 in exact arithmetic
 
 
 def _edge_rows(pos, count, env):
@@ -68,7 +72,20 @@ def _edge_rows(pos, count, env):
     return out_pos, out_count, env[[b for _, b in rows]], louder, quieter, tied
 
 
-@pytest.mark.parametrize("rows", ["pipeline", "edges"])
+def _tie_row(cap, env):
+    """(positions, count, envelope) of one row: beats every ``TIE_RR``
+    samples, one quieter beat ``TIE_SHORT`` samples after the tenth."""
+    beats = list(range(100, 100 + 40 * TIE_RR, TIE_RR))
+    extra = beats[9] + TIE_SHORT
+    row = np.full(env.shape[1], 100.0, env.dtype)
+    row[beats] = 1000.0
+    row[extra] = 500.0
+    pos = np.full((1, cap), env.shape[1], np.int32)
+    pos[0, :41] = sorted(beats + [extra])
+    return pos, np.array([41], np.int32), row[None]
+
+
+@pytest.mark.parametrize("rows", ["pipeline", "edges", "tie"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_rhythm_correction_equals_jax(dtype, rows):
     cfg, pos, count, env = correction_inputs(dtype)
@@ -78,6 +95,8 @@ def test_rhythm_correction_equals_jax(dtype, rows):
     if rows == "edges":
         pos, count, env, louder, quieter, tied = _edge_rows(pos, count, env)
         assert louder > 0 and quieter > tied > 0
+    elif rows == "tie":
+        pos, count, env = _tie_row(pos.shape[1], env)
     got_pos, got_count = tcorr.rhythm_correction(torch.from_numpy(pos),
                                                  torch.from_numpy(count),
                                                  torch.from_numpy(env), SR, cfg)
@@ -93,3 +112,5 @@ def test_rhythm_correction_equals_jax(dtype, rows):
         changed += int(exp_count) != int(count[b])
     if rows == "edges":
         assert changed >= 6          # the neighbour and unsorted rows lose slots
+    elif rows == "tie":
+        assert changed == (dtype == "float32")

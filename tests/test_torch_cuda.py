@@ -753,3 +753,80 @@ def test_exact_f64_floor_equals_the_plain_reference_at_full_width():
     err = (res.floor - exp).abs().nan_to_num(nan=float("inf")).max().item()
     print(f"exact-f64 floor against the plain reference, 4 x 181,200: max abs error {err!r}")
     assert chip_smoke.same_values(res.floor, exp), err
+
+
+# The largest difference of a float field between the card and the CPU, over
+# the largest magnitude of the field on the CPU, where every integer field
+# is equal: an ulp or two of float32 where a kernel and the plain version
+# round one step apart (8.5e-8 on the classifier's trace), far below a beat
+# time moved across a smoothing window's edge (1.1e-3 of the BPM series'
+# scale on these rows).
+FLOAT_FIELD_RTOL = 1e-5
+
+
+def _leaves(a, b, floating: bool, prefix=""):
+    """(name, a's array, b's array) over the float leaves, or the integer
+    and boolean leaves, of two results of one type."""
+    for name, x in zip(a._fields, a):
+        y = getattr(b, name)
+        if hasattr(x, "_fields"):
+            yield from _leaves(x, y, floating, f"{prefix}{name}.")
+        elif isinstance(x, torch.Tensor) and x.is_floating_point() == floating:
+            yield f"{prefix}{name}", x.cpu().numpy(), y.cpu().numpy()
+
+
+@pytest.mark.gpu
+def test_stress_rows_on_the_card_equal_the_cpu():
+    """``stress-b512``'s configuration on 4 rows of the cell's first batch,
+    the first of each family (clipping, dropouts, 40 BPM, 165 BPM; 181,200
+    float32 samples each): every integer and boolean field of the result
+    equal between the card and the port's CPU path, every float field
+    within ``FLOAT_FIELD_RTOL`` of its scale (NaN and infinities in the same
+    places), no row overflowed, and each answer within the cell's limits
+    against the upstream answers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bench_port import core
+    from bench_port.entries.engine import _row
+    from bench_port.reference import compare, upstream
+    from bench_port.traffic import fleet_stress
+    from bpm_analysis_tpu_torch import host
+    from bpm_analysis_tpu_torch.models import envelope, pipeline
+
+    spec = core.cell_spec("stress-b512")
+    cfg = core.program_config(spec.config["runtime"])
+    made = fleet_stress.make(spec.workload["traffic"], 2**31 + 22, "")
+    ids = made["ids"][0]
+    rows = [next(r for r, rid in enumerate(ids) if rid % 4 == family) for family in range(4)]
+    x = made["batches"][0][rows]
+    out = {}
+    for device in ("cuda", "cpu"):
+        env = envelope.preprocess(x, 302, cfg, device=device)[0]
+        out[device] = pipeline.analyze_batch(env, 302, cfg, device=device)
+    card, cpu = out["cuda"], out["cpu"]
+    names = set()
+    for name, g, c in _leaves(card, cpu, floating=False):
+        assert g.shape == c.shape, name
+        np.testing.assert_array_equal(g, c, err_msg=name)
+        names.add(name)
+    assert {"trough_positions", "raw_peak_positions", "classes", "s1_positions",
+            "final_positions", "final_count", "overflowed", "ok"} <= names
+    floats = {}
+    for name, g, c in _leaves(card, cpu, floating=True):
+        assert g.shape == c.shape, name
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(c), err_msg=name)
+        fin = np.isfinite(c)
+        np.testing.assert_array_equal(g[~fin], c[~fin], err_msg=name)
+        scale = np.abs(c[fin]).max() if fin.any() else 0.0
+        floats[name] = float(np.abs(g[fin] - c[fin]).max() / scale) if scale else 0.0
+    print(f"float fields, card against CPU, max abs difference over the field's scale: {floats}")
+    assert {"floor", "metrics.bpm.smoothed", "metrics.avg_bpm"} <= set(floats)
+    assert max(floats.values()) <= FLOAT_FIELD_RTOL, floats
+    assert not card.overflowed.any() and card.ok.all()
+    pool = upstream.pool(spec.workload["traffic"]["pool"])
+    limits = spec.workload["check"]["limits"]
+    res = host.to_host(card)
+    for r in range(len(rows)):
+        got = compare.numbers(compare.answer_of(_row(res, r)), pool.answer(ids[rows[r]]))
+        print(f"stress id {ids[rows[r]]} on the card: {got}")
+        assert all(got[k] <= limits[k] for k in got), (ids[rows[r]], got)

@@ -12,14 +12,15 @@ candidates; the distance suppression as the sequential greedy walk in rank
 order over windows from torch's own binary searches of the float32
 positions; prominences by the linear scans; the steepest slopes and the
 heart-rate recovery with torch's binary searches and argmax; the slope lists
-ranked by a stable count.  The kernel's divisions by a configuration number
-are multiplies by the reciprocal the host rounds to the dtype, as ATen
-divides a CUDA tensor by a Python number, and its square roots are correctly
-rounded; with ``card=False`` the emulation divides and takes torch's CPU
-square root, as the plain version does here.  With ``card=True`` it is held
-against the plain version run under ``CardArithmetic``, which gives the
-plain version the card's division by a Python number and square root on
-the CPU: that checks that the kernel knows every such operation.
+ranked by a stable count.  The kernel divides by the sample rate, the HRV
+window's w and w - 1 and 1000, as the plain version does by device tensors
+on either device, and its square roots are correctly rounded; with
+``card=False`` the emulation takes torch's CPU square root, as the plain
+version does here.  With ``card=True`` it is held against the plain version
+run under ``CardArithmetic``, which gives the plain version the card's
+division by a Python number (a multiply by the reciprocal) and square root
+on the CPU: that checks that the kernel knows every such operation, and
+that the plain version divides by none of those four as a Python number.
 
 The cases are ``chip_smoke.metrics_cases`` (the card test runs the same
 ones); each asserts that it reaches what it is named for.  Beside them: HRV
@@ -174,9 +175,6 @@ def emulate_row(pos_row, cnt: int, sr: int, cfg: AnalyzerConfig, T, card: bool):
     nan, inf = T(np.nan), T(np.inf)
     info = {}
 
-    def sdiv(x, c):   # a division by a configuration number
-        return x * T(T(1) / T(c)) if card else x / T(c)
-
     def sqrt(x, where):   # the device's square root of x at the windows ``where``
         if card:
             return np.sqrt(x)
@@ -186,7 +184,7 @@ def emulate_row(pos_row, cnt: int, sr: int, cfg: AnalyzerConfig, T, card: bool):
 
     idx = np.arange(cap)
     # bpm_series: beat times, the valid diffs compacted in order.
-    t = sdiv(np.where(idx < cnt, pos_row.astype(np.int64), 2 ** 31 - 1).astype(T), sr)
+    t = np.where(idx < cnt, pos_row.astype(np.int64), 2 ** 31 - 1).astype(T) / T(sr)
     d = t[1:] - t[:-1]
     dvalid = (idx[:-1] < cnt - 1) & (d > T(1e-6))
     v = int(dvalid.sum())
@@ -235,16 +233,16 @@ def emulate_row(pos_row, cnt: int, sr: int, cfg: AnalyzerConfig, T, card: bool):
     kk = np.clip(starts[wvalid][:, None] + np.arange(w + 1)[None, :], 0, cap - 2)
     rr = (t[kk + 1] - t[kk]) * T(1000.0)            # (windows, w + 1)
     win = rr[:, :w]
-    mean = sdiv(warp_tree(win, T), w)
-    sdnn = sqrt(sdiv(warp_tree((win - mean[:, None]) * (win - mean[:, None]), T), w), wvalid)
+    mean = warp_tree(win, T) / T(w)
+    sdnn = sqrt(warp_tree((win - mean[:, None]) * (win - mean[:, None]), T) / T(w), wvalid)
     sd = win[:, 1:] - win[:, :-1]
-    rmssd = sqrt(sdiv(warp_tree(sd * sd, T), w - 1), wvalid)
-    msec = sdiv(mean, 1000.0)
+    rmssd = sqrt(warp_tree(sd * sd, T) / T(w - 1), wvalid)
+    msec = mean / T(1000.0)
     with np.errstate(divide="ignore", invalid="ignore"):
         rmssdc = np.where(msec > 0, rmssd / msec, T(0))
         wbpm = np.where(msec > 0, (T(1) / msec) * T(60), T(0))
     sv = starts[wvalid]
-    mid = sdiv(t[np.minimum(sv, cap - 1)] + t[np.minimum(sv + w, cap - 1)], 2.0)
+    mid = (t[np.minimum(sv, cap - 1)] + t[np.minimum(sv + w, cap - 1)]) * T(0.5)
     hrv = {f: np.full(hcap, nan, T) for f in ("time", "rmssdc", "sdnn", "bpm")}
     for f, x in (("time", mid), ("rmssdc", rmssdc), ("sdnn", sdnn), ("bpm", wbpm)):
         hrv[f][wvalid] = x

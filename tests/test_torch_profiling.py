@@ -1,9 +1,9 @@
 """The port's spans (``utils/profiling``) on the CPU: the stage spans of
 ``pipeline.analyze_batch`` in order and nested, with the blocking reads of
-the NMS loop and the correction rounds; the spans of one request through
-``host.analyze_any_file``; no ``record_function`` call without a capture;
-the same results with and without one; ``stage_table`` on a hand-made
-trace."""
+the NMS loop and the correction rounds and those loops' round spans; the
+spans of one request through ``host.analyze_any_file``; no
+``record_function`` call without a capture; the same results with and
+without one; ``stage_table`` on a hand-made trace."""
 import dataclasses
 import json
 
@@ -22,6 +22,7 @@ torch.set_num_threads(1)
 SR = 302
 STAGES = ["bpm.extrema", "bpm.noise_floor", "bpm.raw_peaks", "bpm.classify_preliminary",
           "bpm.classify_main", "bpm.corrections", "bpm.metrics"]
+ROUNDS = ["bpm.nms.round", "bpm.fix.round"]
 RENDER = ["bpm.render.filtered_wav", "bpm.render.settings", "bpm.render.csv",
           "bpm.render.summary", "bpm.render.debug_log", "bpm.render.plot"]
 CFG = dataclasses.replace(DEFAULT_CONFIG, runtime=dataclasses.replace(
@@ -90,7 +91,13 @@ def test_analyze_batch_emits_every_stage_once_per_pass_in_order(batch_runs):
         for s in stages:
             if s[0] in stage_names:
                 assert any(_inside(r, s) for r in reads), (name, s)
-    assert {s[0] for s in spans} == set(STAGES) | {"bpm.sync.nms", "bpm.sync.fix"}
+    assert {s[0] for s in spans} == set(STAGES) | {"bpm.sync.nms", "bpm.sync.fix"} | set(ROUNDS)
+    # Each round of a loop lies in the stage of the read that let it run.
+    for name, stage_names in (("bpm.nms.round", ("bpm.noise_floor", "bpm.raw_peaks",
+                                                 "bpm.metrics")),
+                              ("bpm.fix.round", ("bpm.corrections",))):
+        for r in (s for s in spans if s[0] == name):
+            assert any(_inside(r, s) for s in stages if s[0] in stage_names), r
 
 
 def test_results_equal_with_and_without_a_capture(batch_runs):
@@ -117,7 +124,7 @@ def request_runs(tmp_path_factory):
 def test_request_spans_nest_under_the_request(request_runs):
     _, (res, _), spans = request_runs
     assert res is not None and bool(res.ok)
-    names = [s[0] for s in spans if not s[0].startswith("bpm.sync.")]
+    names = [s[0] for s in spans if not s[0].startswith("bpm.sync.") and s[0] not in ROUNDS]
     assert names == (["bpm.request", "bpm.read", "bpm.to_device", "bpm.preprocess"] + STAGES
                      + ["bpm.to_host", "bpm.render"] + RENDER)
     request = spans[0]
