@@ -15,7 +15,8 @@ package:
   ``ceil(distance)`` spacing, strict ``<``, and equal priorities processed
   later-slot first (docs/ARCHITECTURE.md item 14).  The priority keys are
   made unique by that slot rule; no sort order among equal values is relied
-  on.
+  on.  On the card it is one launch of ``csrc/distance_nms.cu`` with every
+  round on the device; on the CPU the plain rounds with a host read each.
 * prominence of a peak is ``x[p] - max(min(x[lb..p]), min(x[p..rb]))``
   (``wlen=None``), falling back to the signal edges.
 
@@ -27,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .cuda import nms_kernel
 from .indexing import arange, scatter_drop, take
 from .quantile import _sortable_key
 from ..device import upload
@@ -432,14 +434,46 @@ def extrema_prominences(
     return prom, lo | ro | ext.overflowed
 
 
+def _window_slots(distance, cap: int) -> int:
+    """The slots a window spans on each side in the plain version's shifted
+    compares: ``ceil(distance) // 2 + 2`` for a static distance (candidates
+    are local maxima, at least 2 samples apart), the whole row for a
+    per-row one."""
+    if isinstance(distance, (int, float)):
+        return int(-(-distance // 1)) // 2 + 2
+    return cap
+
+
 def _select_by_distance(positions: torch.Tensor, priority: torch.Tensor,
-                        valid: torch.Tensor, distance) -> torch.Tensor:
-    """scipy ``_select_by_peak_distance`` per row: greedy keep-highest
-    suppression, computed as the fixed point of "survives iff no surviving
-    higher-ranked peak lies within ``distance``" by parallel rounds (each
-    round keeps every alive peak that wins its whole neighborhood and kills
-    the neighbors it beats).  ``distance`` is a static number or a (B,)
-    tensor.  Positions are sorted ascending over valid slots.  Returns the
+                        valid: torch.Tensor, distance, length: int) -> torch.Tensor:
+    """scipy ``_select_by_peak_distance`` per row: the keep mask of the
+    greedy keep-highest suppression (:func:`_select_by_distance_plain`).
+    Positions lie below ``length`` and are sorted ascending over the valid
+    slots, each row's prefix.  A CPU tensor takes the plain version; any
+    other launches the distance-NMS kernel (``ops/cuda/nms_kernel``,
+    bit-equal to the plain version, every round on the card, no host read),
+    with a static ``distance`` by value and a per-row one as float32."""
+    if positions.device.type == "cpu":
+        return _select_by_distance_plain(positions, priority, valid, distance)
+    bsz, cap = positions.shape
+    if isinstance(distance, torch.Tensor):
+        distance = distance.to(device=positions.device, dtype=torch.float32) \
+            .reshape(-1).expand(bsz).contiguous()
+    win = _window_slots(distance, cap)
+    # Windows of up to 128 slots come from the shifted compares, which
+    # reach ``win`` slots; wider ones from binary searches over the row.
+    return nms_kernel.select_by_distance(
+        positions.contiguous(), priority.contiguous(), valid.contiguous(), distance,
+        win if win <= 128 else cap, length)
+
+
+def _select_by_distance_plain(positions: torch.Tensor, priority: torch.Tensor,
+                              valid: torch.Tensor, distance) -> torch.Tensor:
+    """The plain version of :func:`_select_by_distance`: the fixed point of
+    "survives iff no surviving higher-ranked peak lies within ``distance``"
+    by parallel rounds (each round keeps every alive peak that wins its
+    whole neighborhood and kills the neighbors it beats), one host read a
+    round.  ``distance`` is a static number or a (B,) tensor.  Returns the
     keep mask."""
     bsz, cap = positions.shape
     dev = positions.device
@@ -455,7 +489,7 @@ def _select_by_distance(positions: torch.Tensor, priority: torch.Tensor,
         .amax(dim=1, keepdim=True) + dist + 1.0
     # Padding slots spread beyond every real window (pairwise gaps > dist).
     posf = torch.where(valid, posf_v, base + slots_f * (dist + 1.0))
-    win = (int(-(-distance // 1)) // 2 + 2) if static else cap
+    win = _window_slots(distance, cap)
     slot_idx = arange(cap, positions)[None, :]
     if win <= 128:
         cnt_prev = torch.zeros(bsz, cap, dtype=torch.int64, device=dev)
@@ -585,7 +619,7 @@ def find_peaks(
 
     if distance is not None:
         prio = take(x, pos) if prio_arr is None else prio_arr
-        keep = _select_by_distance(pos, prio, valid, distance)
+        keep = _select_by_distance(pos, prio, valid, distance, n)
         pos, count = _recompact(pos, keep, n)
         if isinstance(distance, (int, float)):
             # Static survivor bound: spacing >= ceil(distance).

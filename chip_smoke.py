@@ -7,8 +7,8 @@ Run from the repository root.  Phases, each printed on its own line with
 the seconds since start:
 
 1. device: the card's name, power limit and maximum SM clock (``nvidia-smi``);
-2. build: the seven CUDA kernels, compiled with ``nvcc`` from ``csrc/`` in
-   parallel, with each build's time;
+2. build: the CUDA kernels (``KERNELS``), compiled with ``nvcc`` from
+   ``csrc/`` in parallel, with each build's time;
 3. each kernel vs its plain version on the card: the knot kernel's fast
    division against IEEE division over 2^30 operand pairs, the classifier
    kernel's over its constant divisors x 2^25 numerators and 2^28 random
@@ -44,11 +44,17 @@ the seconds since start:
    phase entry points (``ops/filter.contributions`` / ``carry_scan`` /
    ``apply`` on the card) against its ``BlockFilter`` piece (short rows, a ragged last
    block, 2-6 states, both dtypes, the main path's length, one long row);
+   the metrics kernel against ``models/analytics.compute_metrics_plain`` on
+   ``metrics_cases``; the distance-NMS kernel against
+   ``ops/find_peaks._select_by_distance_plain`` on ``nms_cases`` (ties,
+   signed zeros, float64 ties, windows cut at 9 slots, distances of 200 and
+   300, a per-row distance, rising priorities, empty and full rows);
 4. the main path at full width: 16 ten-minute recordings (302 Hz,
    181,200 samples) through ``envelope.preprocess`` → ``pipeline.analyze_batch``
    at float32, stride 64, ``quantile_backend="auto"``; launch counts (the
    filter kernel twice, the knot kernel twice, the row quantile four times,
-   the classifier scan twice, the rhythm scan once), warm wall time, the
+   the classifier scan twice, the rhythm scan once, the metrics kernel
+   once, the distance NMS twice), warm wall time, the
    table of the program's
    ``bpm.*`` spans from one traced batch (``utils/profiling.stage_table``:
    host ms, device ms and launches of each stage), and each
@@ -58,7 +64,10 @@ the seconds since start:
    that the card and not the host's issue times it, beside an empty launch
    timed the same way; the row quantile also at the fleet cell's shape, the
    envelope tiled to 512 rows without and with a valid-prefix mask, with
-   ``torch.nanquantile`` by rows as the library yardstick);
+   ``torch.nanquantile`` by rows as the library yardstick; the distance NMS
+   on its two calls and their ``nms_variants``, then both calls tiled to
+   512 rows, the fleet's 22,014 and 16,384 slots, timed beside
+   ``nms_bound`` and the plain version);
 5. accuracy against the CPU reference's beats and BPM curves
    (``bench_cpu_baseline.json``): worst beat F1 >= 0.99, BPM MAE < 0.5;
 6. the card against the port on the CPU, recordings 0 and 1;
@@ -110,10 +119,11 @@ the seconds since start:
    ``bench_port/configs/engine-stress-302hz.json``'s capacities (4096 raw
    peaks and troughs, 2048 candidates, 40,960 extrema): launch counts, no
    row overflowed, the knot kernel, the row quantile, both classifier
-   passes, the rhythm scan and the metrics kernel against their plain
-   versions on the path's own inputs, the accuracy gates against
-   ``bench_cpu_stress.json``, the kernels' times, the warm wall time and
-   the span table.
+   passes, the rhythm scan, the metrics kernel and the distance NMS (and
+   its variants) against their plain versions on the path's own inputs,
+   the accuracy gates against ``bench_cpu_stress.json``, the kernels' times
+   (the distance NMS at 512 rows of 40,958 slots, a cluster of 2 blocks a
+   row), the warm wall time and the span table.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result.  Any failing phase exits non-zero before the result line; without a
@@ -512,6 +522,106 @@ def metrics_cases(cap: int, seed: int = 0) -> list:
             ("plateaus", 256, *flat), ("many_maxima", SR, *jitter),
             ("many_peaks", SR, *swings), ("vulpine", v_rate, *vulpine),
             ("fleet", SR, *metrics_fleet_rows(4, cap, SR, seed))]
+
+
+NMS_DISTANCE = 15       # int(0.05 s x 302 Hz): both peak finders' distance on every cell
+
+
+def nms_cases(seed: int = 0) -> list:
+    """Cases of the distance suppression, (name, positions (B, cap) int64,
+    priority (B, cap), valid (B, cap) bool, distance: a number or a (B,)
+    float32 array): candidates at ascending positions over each row's valid
+    prefix, the other slots at the signal's last sample as ``find_peaks``
+    fills them.  Local maxima of a random walk at the engine's distance;
+    heavy ties (the later slot wins); -0.0 beside +0.0; float64 priorities
+    that tie only in float32; candidates one sample apart, whose windows the
+    shifted compares cut at 9 slots; distances of 200 (the rank rounds)
+    and 300 (the binary searches); a per-row distance; rising priorities
+    (one survivor a round); rows with no valid slot and rows valid to
+    capacity."""
+    rng = np.random.default_rng(seed)
+
+    def rows(counts, cap, gap_lo, gap_hi):
+        pos = np.zeros((len(counts), cap), np.int64)
+        valid = np.arange(cap)[None, :] < np.asarray(counts)[:, None]
+        for b, c in enumerate(counts):
+            pos[b, :c] = 3 + np.cumsum(rng.integers(gap_lo, gap_hi + 1, c))
+        return np.where(valid, pos, int(pos.max()) + 99), valid
+
+    def normal(valid, dtype=np.float32):
+        return rng.normal(size=valid.shape).astype(dtype)
+
+    walk = rng.normal(size=(4, 5000)).cumsum(axis=1)
+    cap, counts = 1200, (1200, 700, 1, 2)
+    maxima = [np.flatnonzero((w[1:-1] > w[:-2]) & (w[1:-1] >= w[2:])) + 1 for w in walk]
+    valid = np.arange(cap)[None, :] < np.asarray(counts)[:, None]
+    pos = np.full((4, cap), 4999, np.int64)
+    heights = np.zeros((4, cap), np.float32)
+    for b, c in enumerate(counts):
+        pos[b, :c] = maxima[b][:c]
+        heights[b, :c] = walk[b, maxima[b][:c]]
+    cases = [("engine", pos, heights, valid, NMS_DISTANCE)]
+    pos, valid = rows((400, 380, 250), 400, 2, 6)
+    cases.append(("ties", pos, rng.integers(0, 4, valid.shape).astype(np.float32), valid,
+                  NMS_DISTANCE))
+    pos, valid = rows((300, 300), 300, 2, 5)
+    cases.append(("signed_zeros", pos,
+                  rng.choice(np.array([-0.0, 0.0, 1.0, -1.0], np.float32), valid.shape),
+                  valid, 6))
+    pos, valid = rows((300, 260), 300, 2, 6)
+    prio = np.where(rng.random(valid.shape) < 0.3, rng.normal(size=valid.shape),
+                    1.0 + rng.integers(0, 6, valid.shape) * 1e-12)
+    cases.append(("float64_ties", pos, prio, valid, NMS_DISTANCE))
+    pos, valid = rows((200, 150), 200, 1, 1)
+    cases.append(("reach_cut", pos, rng.integers(0, 10, valid.shape).astype(np.float32),
+                  valid, NMS_DISTANCE))
+    for name, distance in (("wide_static", 200), ("wider_static", 300)):
+        pos, valid = rows((600, 420), 600, 2, 10)
+        cases.append((name, pos, normal(valid), valid, distance))
+    pos, valid = rows((400, 400, 300, 100), 400, 2, 6)
+    cases.append(("per_row", pos, normal(valid), valid,
+                  np.array([3, 7.5, 15, 40], np.float32)))
+    pos, valid = rows((120, 90), 120, 2, 2)
+    cases.append(("monotone", pos, np.arange(valid.size, dtype=np.float32).reshape(valid.shape),
+                  valid, 5))
+    pos, valid = rows((0, 0), 50, 2, 4)
+    cases.append(("no_valid_slot", pos, normal(valid), valid, NMS_DISTANCE))
+    pos, valid = rows((500, 500), 500, 2, 5)
+    cases.append(("full_capacity", pos, normal(valid, np.float64), valid, NMS_DISTANCE))
+    return cases
+
+
+def nms_variants(positions, priority, valid, distance, seed: int = 0):
+    """(name, positions, priority, valid, distance) of one call of the
+    distance suppression on the card: the call itself, its first row alone,
+    all-equal priorities, -0.0 beside +0.0, float64 priorities that tie only
+    in float32, a distance of 200, a per-row distance, no valid slot, and
+    every slot valid (positions 2 apart)."""
+    g = torch.Generator(device=positions.device).manual_seed(seed)
+    bsz, cap = positions.shape
+    coin = torch.rand(positions.shape, generator=g, device=positions.device) < 0.5
+    zero = torch.zeros_like(priority)
+    step = torch.randint(0, 4, positions.shape, generator=g, device=positions.device)
+    spaced = (torch.arange(cap, device=positions.device) * 2 + 1).expand(bsz, cap)
+    per_row = torch.tensor([3, 15, 40, 7.5], dtype=torch.float32,
+                           device=positions.device).repeat(-(-bsz // 4))[:bsz]
+    yield "path", positions, priority, valid, distance
+    yield "one_row", positions[:1], priority[:1], valid[:1], \
+        per_row[:1] if isinstance(distance, torch.Tensor) else distance
+    yield "equal_priorities", positions, zero, valid, distance
+    yield "signed_zeros", positions, torch.where(coin, -zero, zero), valid, distance
+    yield "float64_ties", positions, 1.0 + step.double() * 1e-12, valid, distance
+    yield "distance_200", positions, priority, valid, 200
+    yield "per_row_distance", positions, priority, valid, per_row
+    yield "no_valid_slot", positions, priority, torch.zeros_like(valid), distance
+    yield "full_capacity", spaced.contiguous(), priority, torch.ones_like(valid), distance
+
+
+def nms_bound(bsz: int, cap: int, itemsize: int) -> float:
+    """Least time of the distance suppression on (bsz, cap) slots, in ms:
+    positions (int64), priorities and the valid mask read once and the keep
+    mask written once at HBM bandwidth."""
+    return bsz * cap * (8 + itemsize + 1 + 1) / PEAK_BYTES_S * 1e3
 
 
 def rolling_quantile_cases(n: int, rows: int, seed: int = 0) -> list:
@@ -1142,7 +1252,7 @@ def check_filter_cases(dev) -> float:
 # (``kernels/build.launches``); the block filter's phase entry points are
 # counted apart, under FILTER_PHASES.
 KERNELS = ("knot_quantile", "strided_quantile", "row_quantile", "rolling_quantile",
-           "classify_scan", "rhythm_scan", "block_filter", "metrics")
+           "classify_scan", "rhythm_scan", "block_filter", "metrics", "distance_nms")
 FILTER_PHASES = ("block_filter_contributions", "block_filter_carry", "block_filter_apply")
 
 
@@ -1163,8 +1273,10 @@ def read_launches(names=KERNELS) -> dict:
 # floor's quantile kernel twice (the knot or strided kernel at stride 64, the
 # rolling-quantile kernel at stride 1: draft and final floor), and the row
 # quantile four times (three global quantiles of the noise floor, the raw
-# peaks' prominence), and the metrics stage once.
-PER_BATCH = {"classify_scan": 2, "rhythm_scan": 1, "row_quantile": 4, "metrics": 1}
+# peaks' prominence), the metrics stage once, and the distance NMS twice (the
+# trough and the raw-peak finder).
+PER_BATCH = {"classify_scan": 2, "rhythm_scan": 1, "row_quantile": 4, "metrics": 1,
+             "distance_nms": 2}
 AUTO_LAUNCHES = {"knot_quantile": 2, "strided_quantile": 0, "rolling_quantile": 0,
                  **PER_BATCH, "block_filter": 2}
 PALLAS_LAUNCHES = {"knot_quantile": 0, "strided_quantile": 2, "rolling_quantile": 0,
@@ -1270,6 +1382,86 @@ def time_metrics(card, calls) -> dict:
             "replaces": "bpm_analysis_tpu/models/analytics.py compute_metrics",
             "max_abs_err": err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
             "bound_by": "bytes", "library_ms": None}
+
+
+def nms_pair(positions, priority, valid, distance) -> tuple:
+    """(kernel, plain) keep masks of one call of the distance suppression on
+    the card: ``ops/find_peaks._select_by_distance`` (the kernel, one launch
+    unless the call is empty) and ``_select_by_distance_plain``."""
+    from bpm_analysis_tpu_torch.kernels import build
+    from bpm_analysis_tpu_torch.ops import find_peaks as fp
+
+    before = build.launches["distance_nms"]
+    got = fp._select_by_distance(positions, priority, valid, distance, 1 << 24)
+    check(build.launches["distance_nms"] == before + (positions.numel() > 0),
+          f"distance NMS: {build.launches['distance_nms'] - before} launches, expected 1")
+    return got, fp._select_by_distance_plain(positions, priority, valid, distance)
+
+
+def check_nms_cases(dev) -> None:
+    """The distance-NMS kernel against its plain version on the card, keep
+    mask equal, on ``nms_cases`` (the CPU emulation's cases)."""
+    for name, pos, prio, valid, dist in nms_cases():
+        as_card = (lambda a: torch.from_numpy(a).to(dev))
+        got, exp = nms_pair(as_card(pos), as_card(prio), as_card(valid),
+                            as_card(dist) if isinstance(dist, np.ndarray) else dist)
+        check(torch.equal(got, exp), f"distance NMS kernel differs from its plain version "
+                                     f"on {name}")
+    log(f"  distance NMS kernel vs plain: {len(nms_cases())} cases, keep masks equal")
+
+
+def check_nms_calls(calls, label: str) -> None:
+    """The distance-NMS kernel against its plain version on a path's own
+    calls (``nms_kernel.select_by_distance``'s arguments) and on each of
+    their ``nms_variants``: keep masks equal."""
+    for a, _ in calls:
+        for name, *call in nms_variants(*a[:4]):
+            got, exp = nms_pair(*call)
+            check(torch.equal(got, exp), f"{label}: distance NMS kernel differs from its "
+                                         f"plain version on {tuple(a[0].shape)}, {name}")
+    log(f"  distance NMS kernel vs plain [{label}]: "
+        f"{[tuple(a[0].shape) for a, _ in calls]} x {len(list(nms_variants(*calls[0][0][:4])))} "
+        f"variants, keep masks equal")
+
+
+def time_nms(card, calls, label: str, rows: int = 512) -> dict:
+    """The distance-NMS kernel on a path's calls tiled to ``rows`` rows (the
+    engine cells' batch), both calls together as a batch runs them: queued
+    behind a spin and issued back to back, beside its bytes bound and the
+    plain version."""
+    from bpm_analysis_tpu_torch.ops import find_peaks as fp
+    from bpm_analysis_tpu_torch.ops.cuda import nms_kernel
+
+    def tile(t):
+        return t.repeat(-(-rows // t.shape[0]), *([1] * (t.dim() - 1)))[:rows].contiguous()
+
+    tiled = [[tile(x) if isinstance(x, torch.Tensor) else x for x in a[:4]] + list(a[4:])
+             for a, _ in calls]
+    for a in tiled:
+        got, exp = nms_pair(*a[:4])
+        check(torch.equal(got, exp), f"{label}: distance NMS kernel differs from its plain "
+                                     f"version at {tuple(a[0].shape)}")
+
+    def kernel():
+        for a in tiled:
+            nms_kernel.select_by_distance(*a)
+
+    def plain():
+        for a in tiled:
+            fp._select_by_distance_plain(*a[:4])
+
+    ms, paced = device_ms(kernel, 20), cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 1)
+    bound = sum(nms_bound(*a[0].shape, a[1].element_size()) for a in tiled)
+    shapes = [tuple(a[0].shape) for a in tiled]
+    log(f"distance NMS kernel [{label}] {shapes}, {tiled[0][1].dtype}: {ms:.4f} ms queued "
+        f"({paced:.4f} ms issued back to back), bound {bound:.5f} ms by bytes "
+        f"({100 * bound / ms:.1f}% of it), plain {plain_ms:.1f} ms, on {card}")
+    return {"name": "distance_nms", "route": "cuda",
+            "source": "bpm_analysis_tpu_torch/csrc/distance_nms.cu",
+            "replaces": "bpm_analysis_tpu/ops/find_peaks.py:498 _select_by_distance",
+            "shapes": shapes, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
 
 
 def check_knot_cases(dev) -> float:
@@ -1527,21 +1719,22 @@ def stress_config():
         return AnalyzerConfig(runtime=RuntimeConfig(**json.load(f)["runtime"]))
 
 
-def check_stress(card, clock_hz: float) -> None:
+def check_stress(card, clock_hz: float) -> dict:
     """Phase 11: the whole stress pool (``synth.synth_stress_recording``,
     ids 0-127, 32 a family) through the main path at
     ``engine-stress-302hz``'s sizing.  Launch counts, no row overflowed,
     each kernel against its plain version on the path's own inputs at these
     capacities (the knot kernel within rtol/atol, the row quantile, both
-    classifier passes, the rhythm scan and the metrics kernel equal), the
-    accuracy gates against ``bench_cpu_stress.json``, the kernels' times,
-    the warm wall time and the span table."""
+    classifier passes, the rhythm scan, the metrics kernel and the distance
+    NMS equal), the accuracy gates against ``bench_cpu_stress.json``, the
+    kernels' times (the distance NMS at 512 rows of 40,958 slots), the warm
+    wall time and the span table; returns the distance NMS's timing."""
     from bpm_analysis_tpu_torch import synth
     from bpm_analysis_tpu_torch.accuracy import result_curves
     from bpm_analysis_tpu_torch.models import analytics, classifier, corrections
     from bpm_analysis_tpu_torch.ops import knot_quantile as kq
     from bpm_analysis_tpu_torch.ops import quantile
-    from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, row_quantile_kernel
+    from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, nms_kernel, row_quantile_kernel
 
     t_phase = time.perf_counter()
     cfg = stress_config()
@@ -1552,8 +1745,9 @@ def check_stress(card, clock_hz: float) -> None:
     log(f"  stress pool {rows.shape} synthesized and run cold in "
         f"{time.perf_counter() - t_phase:.1f}s")
 
-    k_calls, q_calls, c_calls, r_calls, m_calls = [], [], [], [], []
+    k_calls, q_calls, c_calls, r_calls, m_calls, n_calls = [], [], [], [], [], []
     res, launches = counted_run(rows, cfg, {
+        (nms_kernel, "select_by_distance"): n_calls,
         (analytics, "compute_metrics"): m_calls,
         (row_quantile_kernel, "quantile_exact"): q_calls,
         (knot_kernel, "knot_quantile_anchors"): k_calls,
@@ -1608,6 +1802,8 @@ def check_stress(card, clock_hz: float) -> None:
         + ", ".join(f"classify {p} {ms:.4f} ms (bound {b:.5f} ms, plain {pl:.1f} ms)"
                     for p, (ms, b, pl) in c_ms.items())
         + f", metrics {m_ms:.4f} ms queued, on {card}")
+    check_nms_calls(n_calls, "stress")
+    nms_row = time_nms(card, n_calls, "stress shape")
 
     with open(os.path.join(REPO, "bench_cpu_stress.json")) as f:
         gate_curves(result_curves(res, SR), json.load(f)["per_seed"], STRESS_IDS,
@@ -1617,6 +1813,7 @@ def check_stress(card, clock_hz: float) -> None:
         f"{len(STRESS_IDS) * synth.MINUTES / best:.2f} audio-min/s on {card}")
     log("  stress stage spans (traced run): " + stage_spans(rows, cfg))
     log(f"phase 11 stress deployment: ok in {time.perf_counter() - t_phase:.1f}s")
+    return {k: nms_row[k] for k in ("shapes", "ms", "plain_ms", "bound_ms")}
 
 
 def check_vulpine_default(card, dev):
@@ -2297,8 +2494,9 @@ def main() -> int:
     from bpm_analysis_tpu_torch.ops import quantile
     from bpm_analysis_tpu_torch.models import analytics
     from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                                 metrics_kernel, quantile_kernel, rhythm_kernel,
-                                                 rolling_quantile_kernel, row_quantile_kernel)
+                                                 metrics_kernel, nms_kernel, quantile_kernel,
+                                                 rhythm_kernel, rolling_quantile_kernel,
+                                                 row_quantile_kernel)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2326,7 +2524,7 @@ def main() -> int:
     builds = build_all()
     for wrapper in (knot_kernel, quantile_kernel, row_quantile_kernel,
                     rolling_quantile_kernel, classify_kernel, rhythm_kernel, filter_kernel,
-                    metrics_kernel):
+                    metrics_kernel, nms_kernel):
         wrapper.LIBRARY.load()
     log("phase 2 build: " + ", ".join(f"nvcc {k} {v:.2f}s" for k, v in builds.items())
         + f"; {time.perf_counter() - t0:.2f}s in all")
@@ -2356,6 +2554,7 @@ def main() -> int:
     classify_err, rhythm_err = check_scan_cases(dev)
     filter_err = check_filter_cases(dev)
     check_metrics_cases(dev)
+    check_nms_cases(dev)
     log(f"phase 3 kernels vs plain: ok (knot rtol {RTOL} atol {ATOL}; strided rtol "
         f"{STRIDED_RTOL}; scans equal)")
 
@@ -2372,8 +2571,9 @@ def main() -> int:
     log(f"first run (cold): {time.perf_counter() - t0:.2f}s")
 
     captured, c_captured, r_captured, f_captured, q_captured = [], [], [], [], []
-    m_captured = []
+    m_captured, n_captured = [], []
     res, launches = counted_run(batch, cfg, {
+        (nms_kernel, "select_by_distance"): n_captured,
         (analytics, "compute_metrics"): m_captured,
         (row_quantile_kernel, "quantile_exact"): q_captured,
         (knot_kernel, "knot_quantile_anchors"): captured,
@@ -2504,6 +2704,9 @@ def main() -> int:
             f"on {card}")
     log(f"  the path's {len(q_captured)} row-quantile calls at {tuple(env16.shape)}: equal")
     metrics_row = {**time_metrics(card, m_captured), "launches": launches["metrics"]}
+    check_nms_calls(n_captured, "main path")
+    nms_row = {**time_nms(card, n_captured, "fleet shape"),
+               "launches": launches["distance_nms"]}
     log("phase 4 main path: ok")
 
     # ---- 5. accuracy against the CPU reference -----------------------------
@@ -2575,7 +2778,7 @@ def main() -> int:
                                       (real_strided, strided_call), tmp)
 
     # ---- 11. the stress deployment ---------------------------------------------
-    check_stress(card, clock_hz)
+    nms_stress = check_stress(card, clock_hz)
 
     table = {"kernels": [{
         "name": "knot_quantile",
@@ -2645,7 +2848,7 @@ def main() -> int:
         "bound_ms": f_bound_ms,
         "bound_by": f_bound_by,
         "library_ms": None,
-    }, metrics_row]}
+    }, metrics_row, {**nms_row, "stress": nms_stress}]}
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

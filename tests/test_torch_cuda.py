@@ -1,6 +1,6 @@
 """The CUDA kernels (knot quantile, strided quantile, row quantile, rolling
 quantile, classifier scan, rhythm scan, blocked filter and its phase entry
-points, metrics) against their plain versions, on the card.
+points, metrics, distance NMS) against their plain versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  The machine
 with the card has no JAX, so run these without the suite's conftest (which
@@ -18,8 +18,9 @@ from bpm_analysis_tpu_torch.kernels import build
 from bpm_analysis_tpu_torch.ops import knot_quantile as kq
 from bpm_analysis_tpu_torch.ops import quantile as tq
 from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, knot_kernel,
-                                             metrics_kernel, quantile_kernel, rhythm_kernel,
-                                             rolling_quantile_kernel, row_quantile_kernel)
+                                             metrics_kernel, nms_kernel, quantile_kernel,
+                                             rhythm_kernel, rolling_quantile_kernel,
+                                             row_quantile_kernel)
 
 CASES = chip_smoke.kernel_cases()
 FILTER_CASES = chip_smoke.filter_cases()
@@ -830,3 +831,137 @@ def test_stress_rows_on_the_card_equal_the_cpu():
         got = compare.numbers(compare.answer_of(_row(res, r)), pool.answer(ids[rows[r]]))
         print(f"stress id {ids[rows[r]]} on the card: {got}")
         assert all(got[k] <= limits[k] for k in got), (ids[rows[r]], got)
+
+
+# ---------------------------------------------------------------------------
+# The distance NMS
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.nms_cases()])
+def test_nms_kernel_matches_plain_version_on_the_cases(case):
+    """``chip_smoke.nms_cases`` (the CPU emulation's cases): the keep mask
+    equal to the plain version's on the card, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, pos, prio, valid, dist = next(c for c in chip_smoke.nms_cases() if c[0] == case)
+    got, exp = chip_smoke.nms_pair(*(torch.from_numpy(a).cuda() if isinstance(a, np.ndarray)
+                                     else a for a in (pos, prio, valid, dist)))
+    assert torch.equal(got, exp), case
+
+
+_NMS_CALLS = {}
+NMS_CONFIGS = {"fleet": ("engine-302hz", False, {22_014, 16_384}),
+               "stress": ("engine-stress-302hz", True, {40_958}),
+               "native": ("native-44k", True, {32_766})}
+
+
+def _nms_calls(config: str) -> list:
+    """``nms_kernel.select_by_distance``'s arguments on the main path of 16
+    ten-minute 302 Hz recordings on the card, at a cell's configuration:
+    the fleet's ids at ``engine-302hz`` (22,014 trough and 16,384 raw-peak
+    slots), the stress ids at ``engine-stress-302hz`` (40,958) and at
+    ``native-44k``'s capacities (32,766)."""
+    if config not in _NMS_CALLS:
+        from bench_port import core
+        from bpm_analysis_tpu_torch import synth
+
+        name, stress, _ = NMS_CONFIGS[config]
+        cfg = core.program_config(core.load_json(core.HERE, "configs", f"{name}.json")["runtime"])
+        make = synth.synth_stress_recording if stress else synth.synth_recording
+        rows = np.stack([synth._quantize_int16(make(s)) for s in range(16)]).astype(np.float32)
+        calls = []
+        real = nms_kernel.select_by_distance
+
+        def capture(*a):
+            calls.append(a)
+            return real(*a)
+
+        nms_kernel.select_by_distance = capture
+        try:
+            chip_smoke.run_main_path(rows, cfg, "cuda")
+        finally:
+            nms_kernel.select_by_distance = real
+        _NMS_CALLS[config] = calls
+    return _NMS_CALLS[config]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", sorted(NMS_CONFIGS))
+def test_nms_kernel_matches_plain_version_at_the_cells_widths(config):
+    """The path's two calls at each width and their ``chip_smoke.nms_variants``
+    (B=1, all-equal priorities, signed zeros, float64 ties, a distance of
+    200, a per-row distance, no valid slot, every slot valid): keep masks
+    equal to the plain version's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    calls = _nms_calls(config)
+    assert len(calls) == 2 and {a[0].shape[1] for a in calls} == NMS_CONFIGS[config][2]
+    assert all(a[0].shape[0] == 16 and a[3] == chip_smoke.NMS_DISTANCE and a[4] == 9
+               for a in calls)
+    for a in calls:
+        for name, *call in chip_smoke.nms_variants(*a[:4]):
+            got, exp = chip_smoke.nms_pair(*call)
+            assert torch.equal(got, exp), (tuple(a[0].shape), name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 3, 8, "scratch"])
+def test_nms_kernel_matches_plain_version_in_every_plan(split, monkeypatch):
+    """The fleet's trough call held in a cluster of 3 and of 8 blocks (the
+    halo across several parts) and in global scratch, as well as in the
+    one block its width takes: keep masks equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = next(a for a in _nms_calls("fleet") if a[0].shape[1] == 22_014)
+    cap = a[0].shape[1]
+    forced = (nms_kernel.Plan(1, cap, True) if split == "scratch"
+              else nms_kernel.Plan(split, -(-cap // split), False))
+    monkeypatch.setattr(nms_kernel, "plan", lambda c: forced if c == cap else None)
+    assert nms_kernel.plan(cap) == forced
+    for name, *call in chip_smoke.nms_variants(*a[:4]):
+        got, exp = chip_smoke.nms_pair(*call)
+        assert torch.equal(got, exp), (split, name)
+
+
+@pytest.mark.gpu
+def test_nms_wrapper_rejects_what_the_kernel_does_not_take():
+    """A CUDA int32 position tensor, a mask on the CPU, positions that may
+    reach 2^24."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pos = torch.zeros((2, 8), dtype=torch.int64, device="cuda")
+    prio = torch.zeros((2, 8), dtype=torch.float32, device="cuda")
+    valid = torch.zeros((2, 8), dtype=torch.bool, device="cuda")
+    for args, what in (((pos.int(), prio, valid, 15, 9, 100), "expected"),
+                       ((pos, prio, valid.cpu(), 15, 9, 100), "expected"),
+                       ((pos, prio, valid, 15, 9, (1 << 24) + 1), "2\\^24")):
+        with pytest.raises(ValueError, match=what):
+            nms_kernel.select_by_distance(*args)
+
+
+@pytest.mark.gpu
+def test_stress_integer_fields_equal_with_the_plain_nms_on_the_card(monkeypatch):
+    """``pipeline.analyze_batch`` at ``engine-stress-302hz`` on the four
+    families' first ids on the card, with the kernel and again with the
+    plain version in its place: every integer and boolean field equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bpm_analysis_tpu_torch import synth
+    from bpm_analysis_tpu_torch.ops import find_peaks as fp
+
+    cfg = chip_smoke.stress_config()
+    rows = np.stack([synth._quantize_int16(synth.synth_stress_recording(s))
+                     for s in range(4)]).astype(np.float32)
+    before = build.launches["distance_nms"]
+    kernel = chip_smoke.run_main_path(rows, cfg, "cuda")
+    assert build.launches["distance_nms"] == before + 2
+    monkeypatch.setattr(nms_kernel, "select_by_distance",
+                        lambda p, pr, v, d, reach, length:
+                        fp._select_by_distance_plain(p, pr, v, d))
+    plain = chip_smoke.run_main_path(rows, cfg, "cuda")
+    names = set()
+    for name, g, c in _leaves(kernel, plain, floating=False):
+        np.testing.assert_array_equal(g, c, err_msg=name)
+        names.add(name)
+    assert {"trough_positions", "raw_peak_positions", "final_positions"} <= names

@@ -34,6 +34,7 @@ DISPATCHER = {
     "rhythm_kernel": "models.corrections",
     "classify_kernel": "models.classifier",
     "metrics_kernel": "models.analytics",
+    "nms_kernel": "ops.find_peaks",
 }
 
 
