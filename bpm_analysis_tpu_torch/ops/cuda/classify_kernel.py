@@ -4,7 +4,8 @@ Counterpart of the ``lax.scan`` in ``bpm_analysis_tpu/models/classifier.py``
 (the blocked step over raw-peak slots) on CUDA tensors: the carry-dependent
 loop of ``models/classifier.classify``.  ``models/classifier.classify_scan``
 calls it for CUDA tensors, with the kernel's two constant tables, and runs
-the plain version, ``scan_plain``, for CPU ones.
+the plain version, ``scan_plain``, for CPU ones.  Each launch runs inside
+the span ``bpm.scan``.
 
 The tables' layout is the kernel's own: :data:`SCALARS` scalars (its
 ``enum Const``) then five Interp rows of :data:`TABLE_WIDTH` (its ``enum
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ...utils.profiling import span
 
 SCALARS = 32            # the kernel's enum Const
 TABLE_WIDTH = 48        # its enum Table
@@ -106,9 +108,10 @@ def classify_scan(x, n: int, consts: torch.Tensor, codes: torch.Tensor, kickstar
         fields = torch.empty((len(KERNEL_FIELDS), bsz, cap), dtype=dtype, device=device)
     out_ptrs = [None if t is None else t.data_ptr() for t in (lone_reason, paired, fields)]
     entry = "classify_scan_f32" if dtype == torch.float32 else "classify_scan_f64"
-    LIBRARY.launch(entry, device, x.positions.data_ptr(), x.deviation.data_ptr(),
-                   x.interval_sec.data_ptr(), x.s2_s1_ratio.data_ptr(), x.strength.data_ptr(),
-                   x.boost.data_ptr(), x.flags.data_ptr(), x.count.data_ptr(),
-                   x.start_belief.data_ptr(), consts.data_ptr(), codes.data_ptr(), bsz, cap,
-                   int(want_trace), int(kickstart), peak_class.data_ptr(), *out_ptrs)
+    with span("bpm.scan"):
+        LIBRARY.launch(entry, device, x.positions.data_ptr(), x.deviation.data_ptr(),
+                       x.interval_sec.data_ptr(), x.s2_s1_ratio.data_ptr(), x.strength.data_ptr(),
+                       x.boost.data_ptr(), x.flags.data_ptr(), x.count.data_ptr(),
+                       x.start_belief.data_ptr(), consts.data_ptr(), codes.data_ptr(), bsz, cap,
+                       int(want_trace), int(kickstart), peak_class.data_ptr(), *out_ptrs)
     return peak_class, lone_reason, paired, fields

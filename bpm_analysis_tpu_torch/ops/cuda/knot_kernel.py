@@ -5,6 +5,11 @@ anchors of the knot-domain rolling quantile
 (``ops/knot_quantile.rolling_quantile_knots`` semantics), float32, of
 CUDA tensors.  ``ops/knot_quantile.knot_quantile_anchors_f32`` calls it for
 CUDA tensors and runs the plain version for CPU ones.
+
+A block stages its recording's knot table in shared memory, 8 bytes a slot,
+where the device's opt-in shared memory holds it (29,056 slots on an
+H100); a wider table (a two-hour recording's 32,768 troughs) is read from
+global memory, with the same bits.  The library decides.
 """
 from __future__ import annotations
 

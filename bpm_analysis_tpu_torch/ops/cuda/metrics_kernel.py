@@ -12,7 +12,8 @@ its planes into the ``Metrics`` tuples, and runs the plain version,
 A block's arrays sit in shared memory up to a capacity of ~4,460 slots in
 float64 and ~8,250 in float32; past that the library asks for a global
 scratch region of each block (``metrics_scratch_bytes``), and at most
-:data:`SCRATCH_BYTES` of it is taken, the blocks looping over the rows.
+:data:`SCRATCH_BYTES` of it is taken, the blocks looping over the rows;
+such a launch runs inside the span ``bpm.scratch``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ...utils.profiling import span_if
 
 LIBRARY = build.Library(
     "metrics",
@@ -103,7 +105,8 @@ def compute(positions: torch.Tensor, count: torch.Tensor, sample_rate: int, cfg,
         blocks = max(1, min(bsz, SCRATCH_BYTES // per_block))
         scratch = torch.empty(blocks * per_block, dtype=torch.uint8, device=device)
     entry = "metrics_f32" if dtype == torch.float32 else "metrics_f64"
-    LIBRARY.launch(entry, device, positions.data_ptr(), count.data_ptr(), ints, reals, bsz,
-                   *(t.data_ptr() for t in out),
-                   None if scratch is None else scratch.data_ptr(), blocks)
+    with span_if(scratch is not None, "bpm.scratch"):
+        LIBRARY.launch(entry, device, positions.data_ptr(), count.data_ptr(), ints, reals,
+                       bsz, *(t.data_ptr() for t in out),
+                       None if scratch is None else scratch.data_ptr(), blocks)
     return out

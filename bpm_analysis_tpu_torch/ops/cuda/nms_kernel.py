@@ -4,7 +4,8 @@ Counterpart of ``bpm_analysis_tpu/ops/find_peaks.py``'s ``_select_by_distance``,
 an XLA ``lax.while_loop`` (not a Pallas kernel): the keep mask of the peak
 finders' greedy keep-highest suppression by distance, for each row of a
 (B, cap) batch of candidates, with every round on the card in one launch a
-call, inside the span ``bpm.nms``.  ``ops/find_peaks._select_by_distance``
+call, inside the span ``bpm.nms`` (and ``bpm.scratch`` where the rows take
+global scratch).  ``ops/find_peaks._select_by_distance``
 calls it for CUDA tensors and runs the plain version,
 ``_select_by_distance_plain``, for CPU ones.
 
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ...kernels import build
-from ...utils.profiling import span
+from ...utils.profiling import span, span_if
 
 LIBRARY = build.Library(
     "distance_nms",
@@ -104,7 +105,7 @@ def select_by_distance(positions: torch.Tensor, priority: torch.Tensor, valid: t
         scratch = torch.empty(bsz * row, dtype=torch.uint8, device=device)
     per_row = isinstance(distance, torch.Tensor)
     entry = "distance_nms_f32" if priority.dtype == torch.float32 else "distance_nms_f64"
-    with span("bpm.nms"):
+    with span("bpm.nms"), span_if(in_scratch, "bpm.scratch"):
         LIBRARY.launch(entry, device, positions.data_ptr(), priority.data_ptr(),
                        valid.data_ptr(), distance.data_ptr() if per_row else None,
                        0.0 if per_row else float(distance), bsz, cap, min(reach, cap), split,

@@ -3,7 +3,8 @@
 Counterpart of the ``lax.scan`` in ``bpm_analysis_tpu/models/corrections.py``
 (stage 4's greedy conflict resolution) on CUDA tensors.
 ``models/corrections.rhythm_scan`` calls it for CUDA tensors and runs the
-plain version, ``rhythm_scan_plain``, for CPU ones.
+plain version, ``rhythm_scan_plain``, for CPU ones.  Each launch runs inside
+the span ``bpm.scan``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ...kernels import build
+from ...utils.profiling import span
 
 LIBRARY = build.Library(
     "rhythm_scan",
@@ -53,6 +55,7 @@ def rhythm_scan(pos: torch.Tensor, amp: torch.Tensor, count: torch.Tensor,
         entry, sr = "rhythm_scan_f32", ctypes.c_float(float(np.float32(sample_rate)))
     else:
         entry, sr = "rhythm_scan_f64", ctypes.c_double(float(sample_rate))
-    LIBRARY.launch(entry, device, pos.data_ptr(), amp.data_ptr(), count.data_ptr(),
-                   threshold.data_ptr(), sr, bsz, cap, written.data_ptr(), victim.data_ptr())
+    with span("bpm.scan"):
+        LIBRARY.launch(entry, device, pos.data_ptr(), amp.data_ptr(), count.data_ptr(),
+                       threshold.data_ptr(), sr, bsz, cap, written.data_ptr(), victim.data_ptr())
     return written, victim

@@ -34,6 +34,11 @@ def span(name: str):
     return _NO_SPAN
 
 
+def span_if(condition: bool, name: str):
+    """``span(name)`` where ``condition`` holds, else the shared no-op."""
+    return span(name) if condition else _NO_SPAN
+
+
 def sync(site: str):
     """The span ``bpm.sync.<site>`` around an exchange with the card that
     waits for it (a host read of a device value, a copy from pageable host

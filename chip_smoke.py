@@ -123,7 +123,18 @@ the seconds since start:
    its variants) against their plain versions on the path's own inputs,
    the accuracy gates against ``bench_cpu_stress.json``, the kernels' times
    (the distance NMS at 512 rows of 40,958 slots, a cluster of 2 blocks a
-   row), the warm wall time and the span table.
+   row), the warm wall time and the span table;
+12. the two-hour deployment: recordings 0, 8, 16 and 24 of
+   ``synth_recording(id, 120)`` (2,174,400 samples) through the main path at
+   ``bench_port/configs/engine-2h-302hz.json``'s capacities (32,768 raw
+   peaks and troughs, 18,432 candidates, 264,192 extrema): launch counts, no
+   row overflowed, each row against its frozen answer
+   (``synth-302hz-2h``) within ``long-2h-b64``'s limits, the knot kernel
+   (32,768-knot tables), the row quantile, the trough NMS in global scratch
+   and the raw-peak NMS in a cluster of 8 (and their variants), the metrics
+   kernel in global scratch, both classifier passes and the rhythm scan
+   against their plain versions on the path's own inputs, then those
+   kernels at the cell's 64 rows beside their bounds, and the span table.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result.  Any failing phase exits non-zero before the result line; without a
@@ -225,8 +236,9 @@ SP_QUANTILE = dict(window=3020, q=0.3, min_periods=3, stride=64)
 DIVISION_PAIRS = 1 << 28
 REPO = os.path.dirname(os.path.abspath(__file__))
 VULPINE = os.path.join(REPO, "tests", "golden", "vulpine_oracle.npz")
-STRESS_CONFIG = os.path.join(REPO, "bench_port", "configs", "engine-stress-302hz.json")
 STRESS_IDS = list(range(128))  # the answered stress pool, four families cycled by id
+LONG_IDS = (0, 8, 16, 24)       # one from each quarter of the two-hour pool
+LONG_MINUTES, LONG_ROWS = 120, 64   # long-2h-b64's recording length and batch
 ARTIFACTS = ("_bpm_plot.csv", "_bpm_plot.html", "_Analysis_Summary.md", "_Debug_Log.md",
              "_Analysis_Settings.json", "_filtered_debug.wav")
 
@@ -268,6 +280,19 @@ def random_knots(rng, n, cap, min_spacing, count):
     val = np.zeros(cap, np.float32)
     val[:count] = np.abs(rng.randn(count)).astype(np.float32) * 120
     return full, val, count
+
+
+def padded_knot_case(case, slots: int):
+    """A ``kernel_cases`` case with its knot tables padded to ``slots``
+    (position n, value 0 past each row's knots): the same anchors, and past
+    a block's opt-in shared memory (8 bytes a slot) the knot kernel reads
+    the table from global memory."""
+    name, pos, val, cnt, n, window, stride, ms, nv = case
+    p = np.full((pos.shape[0], slots), n, np.int32)
+    p[:, :pos.shape[1]] = pos
+    v = np.zeros((pos.shape[0], slots), np.float32)
+    v[:, :pos.shape[1]] = val
+    return name, p, v, cnt, n, window, stride, ms, nv
 
 
 def kernel_cases():
@@ -1710,12 +1735,12 @@ def check_card_vs_cpu(batch, cfg, curves, label):
         check(f1 >= 0.99, f"{label}: card vs CPU beat F1 {f1} < 0.99 on recording {s}")
 
 
-def stress_config():
-    """``engine-stress-302hz``'s runtime, read from its benchmark file: the
-    fleet engine at the out-of-family recordings' capacities."""
+def bench_config(name: str):
+    """The runtime of the benchmark's configuration ``name``, read from
+    ``bench_port/configs/<name>.json``."""
     from bpm_analysis_tpu_torch.config import AnalyzerConfig, RuntimeConfig
 
-    with open(STRESS_CONFIG) as f:
+    with open(os.path.join(REPO, "bench_port", "configs", f"{name}.json")) as f:
         return AnalyzerConfig(runtime=RuntimeConfig(**json.load(f)["runtime"]))
 
 
@@ -1737,7 +1762,7 @@ def check_stress(card, clock_hz: float) -> dict:
     from bpm_analysis_tpu_torch.ops.cuda import knot_kernel, nms_kernel, row_quantile_kernel
 
     t_phase = time.perf_counter()
-    cfg = stress_config()
+    cfg = bench_config("engine-stress-302hz")
     rows = np.stack([synth._quantize_int16(synth.synth_stress_recording(s))
                      for s in STRESS_IDS]).astype(np.float32)
     run_main_path(rows, cfg, "cuda")
@@ -1814,6 +1839,160 @@ def check_stress(card, clock_hz: float) -> dict:
     log("  stress stage spans (traced run): " + stage_spans(rows, cfg))
     log(f"phase 11 stress deployment: ok in {time.perf_counter() - t_phase:.1f}s")
     return {k: nms_row[k] for k in ("shapes", "ms", "plain_ms", "bound_ms")}
+
+
+def tiled(args, bsz: int, rows: int):
+    """A kernel call's arguments with every tensor of ``bsz`` rows (also
+    inside a named tuple) repeated to ``rows`` rows."""
+    if isinstance(args, tuple) and hasattr(args, "_fields"):
+        return type(args)(*(tiled(a, bsz, rows) for a in args))
+    if isinstance(args, (list, tuple)):
+        return type(args)(tiled(a, bsz, rows) for a in args)
+    if isinstance(args, dict):
+        return {k: tiled(v, bsz, rows) for k, v in args.items()}
+    if isinstance(args, torch.Tensor) and args.dim() >= 1 and args.shape[0] == bsz:
+        reps = -(-rows // bsz)
+        return args.repeat(reps, *([1] * (args.dim() - 1)))[:rows].contiguous()
+    return args
+
+
+def check_long(card, clock_hz: float) -> dict:
+    """Phase 12: ``LONG_IDS`` of the two-hour pool (``synth_recording(id,
+    120)``, 2,174,400 samples) through the main path at
+    ``engine-2h-302hz``'s sizing.  Launch counts, no row overflowed, every
+    row within the ``long-2h-b64`` cell's limits of its frozen answer, and
+    each kernel against its plain version on the path's own inputs at these
+    capacities: the knot kernel on 32,768-knot tables, the row quantile, the
+    trough NMS in global scratch (264,190 slots) and the raw-peak NMS in a
+    cluster of 8 (196,608 slots) with their variants, the metrics kernel in
+    global scratch (18,432 slots), both classifier passes (32,768 steps; the
+    plain scan on CPU copies, whose bits do not depend on the device) and the
+    rhythm scan, all equal.  Then the kernels at the cell's 64 rows (the
+    path's calls tiled) beside their bounds, and the span table; returns the
+    kernel table's entries for this shape."""
+    from bench_port.entries.engine import _row
+    from bench_port.reference import compare, upstream
+    from bench_port.traffic import synth as bench_synth
+    from bpm_analysis_tpu_torch import host
+    from bpm_analysis_tpu_torch.models import analytics, classifier, corrections
+    from bpm_analysis_tpu_torch.ops import knot_quantile as kq
+    from bpm_analysis_tpu_torch.ops import quantile
+    from bpm_analysis_tpu_torch.ops.cuda import (knot_kernel, metrics_kernel, nms_kernel,
+                                                 row_quantile_kernel)
+
+    t_phase = time.perf_counter()
+    cfg = bench_config("engine-2h-302hz")
+    rt = cfg.runtime
+    rows = np.stack([bench_synth.quantize_int16(bench_synth.synth_recording(i, LONG_MINUTES))
+                     for i in LONG_IDS]).astype(np.float32)
+    run_main_path(rows, cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"  two-hour rows {rows.shape} synthesized and run cold in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    k_calls, q_calls, c_calls, r_calls, m_calls, n_calls = [], [], [], [], [], []
+    res, launches = counted_run(rows, cfg, {
+        (nms_kernel, "select_by_distance"): n_calls,
+        (analytics, "compute_metrics"): m_calls,
+        (row_quantile_kernel, "quantile_exact"): q_calls,
+        (knot_kernel, "knot_quantile_anchors"): k_calls,
+        (classifier, "classify_scan"): c_calls,
+        (corrections, "rhythm_scan"): r_calls})
+    log(f"  kernel launches on the two-hour rows: {launches}")
+    check(launches == AUTO_LAUNCHES, f"long: expected {AUTO_LAUNCHES}, got {launches}")
+    overflowed = res.overflowed.cpu().numpy()
+    check(not overflowed.any(), f"long: a capacity truncated events on rows "
+                                f"{np.nonzero(overflowed)[0].tolist()}")
+    check(bool(res.ok.all()), "long: a row is not ok")
+    pool = upstream.pool("synth-302hz-2h")
+    with open(os.path.join(REPO, "bench_port", "workloads", "long-2h-b64.json")) as f:
+        limits = json.load(f)["check"]["limits"]
+    fetched = host.to_host(res)
+    for r, rid in enumerate(LONG_IDS):
+        got = compare.numbers(compare.answer_of(_row(fetched, r)), pool.answer(rid))
+        log(f"  id {rid}: {int(res.final_count[r])} final beats, against its frozen answer "
+            f"{got}")
+        check(all(got[k] <= limits[k] for k in got),
+              f"long: id {rid} outside the cell's limits {limits}: {got}")
+
+    real_anchors = knot_kernel.knot_quantile_anchors
+    for label, (a, k) in zip(("draft floor", "final floor"), k_calls):
+        check(a[0].shape[1] == rt.max_troughs, f"long: knot table {tuple(a[0].shape)}")
+        check(same_values(real_anchors(*a, **k),
+                          kq.rolling_quantile_knots(*a, **k, dtype=torch.float32)),
+              f"long: knot kernel differs from its plain version on the {label}")
+    for a, k in q_calls:
+        check(same_values(row_quantile_kernel.quantile_exact(*a, **k),
+                          quantile.quantile_exact_plain(*a, **k)),
+              "long: row-quantile kernel differs from its plain version")
+    widths = sorted(a[0].shape[1] for a, _ in n_calls)
+    check(widths == sorted([rt.raw_candidate_capacity, rt.extrema_capacity - 2]),
+          f"long: distance NMS widths {widths}")
+    check(nms_kernel.plan(rt.extrema_capacity - 2).scratch,
+          "long: the trough NMS does not take global scratch")
+    check(nms_kernel.plan(rt.raw_candidate_capacity).split == nms_kernel.MAX_SPLIT,
+          "long: the raw-peak NMS does not take a cluster of 8")
+    check_nms_calls(n_calls, "long")
+    (ma, mk), = m_calls
+    check(metrics_kernel.LIBRARY.load().metrics_scratch_bytes(
+        ma[0].shape[1], analytics.HRV_CAPACITY, ma[4].itemsize) > 0,
+          "long: the metrics kernel does not take global scratch")
+    bad = metrics_differ(analytics.compute_metrics(*ma, **mk),
+                         analytics.compute_metrics_plain(*ma, **mk))
+    check(not bad, f"long: metrics kernel differs from its plain version: {bad}")
+    for label, (a, k) in zip(("preliminary", "main"), c_calls):
+        check(a[0].positions.shape[1] == rt.max_raw_peaks,
+              f"long: classifier slots {tuple(a[0].positions.shape)}")
+        got = classifier.classify_scan(*a, **k)
+        got = (got[0].cpu(), None if got[1] is None
+               else type(got[1])(*(None if t is None else t.cpu() for t in got[1])))
+        exp = classifier.scan_plain(type(a[0])(*(t.cpu() for t in a[0])), *a[2:], **k)
+        err = trace_error(got, exp)
+        check(err == 0, f"long: classify kernel differs from its plain version on the "
+                        f"{label} pass (max abs err {err})")
+    a, k = r_calls[-1]
+    check(rhythm_error(corrections.rhythm_scan(*a, **k),
+                       corrections.rhythm_scan_plain(*a[:4], a[5])) == 0,
+          "long: rhythm kernel differs from its plain version")
+    log(f"  long kernels vs plain: knot {tuple(k_calls[0][0][0].shape)}, {len(q_calls)} row "
+        f"quantiles, both classifier passes {tuple(c_calls[0][0][0].positions.shape)}, rhythm "
+        f"{tuple(a[0].shape)} and metrics {tuple(ma[0].shape)} equal")
+
+    bsz = rows.shape[0]
+    ka, kk = tiled(k_calls[-1], bsz, LONG_ROWS)
+    k_ms = device_ms(lambda: real_anchors(*ka, **kk), 5)
+    k_bound, k_by = knot_bound(*ka, **kk)
+    k_plain = cuda_ms(lambda: kq.rolling_quantile_knots(*ka, **kk, dtype=torch.float32), 1)
+    ma64, mk64 = tiled((ma, mk), bsz, LONG_ROWS)
+    m_ms = device_ms(lambda: analytics.compute_metrics(*ma64, **mk64), 5)
+    m_bound = metrics_bound(LONG_ROWS, ma[0].shape[1], ma[4])
+    m_plain = cuda_ms(lambda: analytics.compute_metrics_plain(*ma64, **mk64), 1)
+    c_ms = {}
+    for label, call in zip(("preliminary", "main"), c_calls):
+        a, k = tiled(call, bsz, LONG_ROWS)
+        c_ms[label] = (device_ms(lambda: classifier.classify_scan(*a, **k), 5),
+                       scan_bound(a[0], k["want_trace"], clock_hz)[0])
+    a, k = tiled(r_calls[-1], bsz, LONG_ROWS)
+    r_ms = device_ms(lambda: corrections.rhythm_scan(*a, **k), 5)
+    r_bound = rhythm_bound(*a[:4], a[5], clock_hz)[0]
+    log(f"knot kernel [long shape] {tuple(ka[0].shape)} knots over {ka[3]} samples: "
+        f"{k_ms:.4f} ms queued, bound {k_bound:.5f} ms by {k_by} ({100 * k_bound / k_ms:.1f}% "
+        f"of it), plain {k_plain:.1f} ms, on {card}")
+    log(f"metrics kernel [long shape] {tuple(ma64[0].shape)} {ma[4]} in global scratch: "
+        f"{m_ms:.4f} ms queued, bound {m_bound:.5f} ms by bytes "
+        f"({100 * m_bound / m_ms:.2f}% of it), plain {m_plain:.1f} ms, on {card}")
+    log("scan kernels [long shape]: " + ", ".join(
+        f"classify {p} {ms:.4f} ms (bound {b:.5f} ms, {100 * b / ms:.1f}%)"
+        for p, (ms, b) in c_ms.items())
+        + f", rhythm {r_ms:.4f} ms (bound {r_bound:.6f} ms), queued, on {card}")
+    nms_row = time_nms(card, n_calls, "long shape", rows=LONG_ROWS)
+    log("  long stage spans (traced run): " + stage_spans(rows, cfg))
+    log(f"phase 12 two-hour deployment: ok in {time.perf_counter() - t_phase:.1f}s")
+    return {"knot_quantile": {"shapes": [tuple(ka[0].shape)], "ms": k_ms,
+                              "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by},
+            "metrics": {"shapes": [tuple(ma64[0].shape)], "ms": m_ms, "plain_ms": m_plain,
+                        "bound_ms": m_bound, "bound_by": "bytes"},
+            "distance_nms": {k: nms_row[k] for k in ("shapes", "ms", "plain_ms", "bound_ms")}}
 
 
 def check_vulpine_default(card, dev):
@@ -2780,6 +2959,9 @@ def main() -> int:
     # ---- 11. the stress deployment ---------------------------------------------
     nms_stress = check_stress(card, clock_hz)
 
+    # ---- 12. the two-hour deployment ------------------------------------------
+    long_rows = check_long(card, clock_hz)
+
     table = {"kernels": [{
         "name": "knot_quantile",
         "route": "cuda",
@@ -2793,6 +2975,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "long": long_rows["knot_quantile"],
     }, {
         "name": "strided_quantile",
         "route": "cuda",
@@ -2848,7 +3031,8 @@ def main() -> int:
         "bound_ms": f_bound_ms,
         "bound_by": f_bound_by,
         "library_ms": None,
-    }, metrics_row, {**nms_row, "stress": nms_stress}]}
+    }, {**metrics_row, "long": long_rows["metrics"]},
+        {**nms_row, "stress": nms_stress, "long": long_rows["distance_nms"]}]}
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

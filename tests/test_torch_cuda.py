@@ -23,6 +23,7 @@ from bpm_analysis_tpu_torch.ops.cuda import (classify_kernel, filter_kernel, kno
                                              row_quantile_kernel)
 
 CASES = chip_smoke.kernel_cases()
+LONG_KNOT_SLOTS = 32_768        # long-2h-b64's max_troughs: its knot tables
 FILTER_CASES = chip_smoke.filter_cases()
 _SCAN_CALLS = {}
 
@@ -283,6 +284,32 @@ def test_cuda_kernel_matches_plain_version(case):
                                     min_spacing=ms, n_valid=nv_t, dtype=torch.float32)
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
                                rtol=chip_smoke.RTOL, atol=chip_smoke.ATOL, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_knot_kernel_reads_its_table_from_global_memory_with_the_same_bits(case):
+    """Every case with its knot tables padded to the long cell's 32,768
+    slots (``chip_smoke.padded_knot_case``), past a block's opt-in shared
+    memory, so the kernel reads them from global memory: bit for bit the
+    staged kernel's anchors on the unpadded tables and the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", None)
+    assert optin is None or LONG_KNOT_SLOTS * 8 > optin
+
+    def anchors(c):
+        _, pos, val, cnt, n, window, stride, ms, nv = c
+        args = [torch.from_numpy(a).to(dev) for a in (pos, val, cnt)]
+        kw = dict(min_periods=3, stride=stride, min_spacing=ms,
+                  n_valid=None if nv is None else torch.from_numpy(nv).to(dev))
+        return (knot_kernel.knot_quantile_anchors(*args, n, window, 0.2, **kw),
+                kq.rolling_quantile_knots(*args, n, window, 0.2, **kw, dtype=torch.float32))
+
+    shared, _ = anchors(case)
+    got, exp = anchors(chip_smoke.padded_knot_case(case, LONG_KNOT_SLOTS))
+    assert chip_smoke.same_values(got, shared) and chip_smoke.same_values(got, exp)
 
 
 @pytest.mark.gpu
@@ -788,10 +815,7 @@ def test_stress_rows_on_the_card_equal_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from bench_port import core
-    from bench_port.entries.engine import _row
-    from bench_port.reference import compare, upstream
     from bench_port.traffic import fleet_stress
-    from bpm_analysis_tpu_torch import host
     from bpm_analysis_tpu_torch.models import envelope, pipeline
 
     spec = core.cell_spec("stress-b512")
@@ -804,7 +828,19 @@ def test_stress_rows_on_the_card_equal_the_cpu():
     for device in ("cuda", "cpu"):
         env = envelope.preprocess(x, 302, cfg, device=device)[0]
         out[device] = pipeline.analyze_batch(env, 302, cfg, device=device)
-    card, cpu = out["cuda"], out["cpu"]
+    _assert_card_equals_cpu(out["cuda"], out["cpu"], spec, [ids[r] for r in rows])
+
+
+def _assert_card_equals_cpu(card, cpu, spec, ids) -> None:
+    """Every integer and boolean field of two results of the main path
+    equal, every float field within ``FLOAT_FIELD_RTOL`` of its scale (NaN
+    and infinities in the same places), no row overflowed, and each row's
+    answer (recording ``ids[r]``) within the cell's limits against the
+    pool's answers."""
+    from bench_port.entries.engine import _row
+    from bench_port.reference import compare, upstream
+    from bpm_analysis_tpu_torch import host
+
     names = set()
     for name, g, c in _leaves(card, cpu, floating=False):
         assert g.shape == c.shape, name
@@ -827,10 +863,73 @@ def test_stress_rows_on_the_card_equal_the_cpu():
     pool = upstream.pool(spec.workload["traffic"]["pool"])
     limits = spec.workload["check"]["limits"]
     res = host.to_host(card)
-    for r in range(len(rows)):
-        got = compare.numbers(compare.answer_of(_row(res, r)), pool.answer(ids[rows[r]]))
-        print(f"stress id {ids[rows[r]]} on the card: {got}")
-        assert all(got[k] <= limits[k] for k in got), (ids[rows[r]], got)
+    for r, rid in enumerate(ids):
+        got = compare.numbers(compare.answer_of(_row(res, r)), pool.answer(rid))
+        print(f"{spec.name}: id {rid} on the card: {got}")
+        assert all(got[k] <= limits[k] for k in got), (rid, got)
+
+
+@pytest.mark.gpu
+def test_long_rows_on_the_card_equal_the_cpu():
+    """``long-2h-b64``'s configuration on 4 two-hour rows, one from each
+    quarter of the pool (2,174,400 float32 samples each): the card against
+    the port's CPU path as in the stress test above; and, on the path's own
+    inputs on the card, both knot-quantile launches with their 32,768-slot
+    tables in global memory, the trough NMS's launch in global scratch
+    (264,190 slots), the raw-peak NMS's in a cluster of 8 (196,608 slots),
+    the metrics kernel's global-scratch launch (18,432 slots) and both
+    classifier passes (32,768 slots) equal to their plain versions.  The
+    plain scans run on CPU copies of their inputs: every division in them
+    has a tensor divisor and their sums are of flags, so their bits do not
+    depend on the device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bench_port import core
+    from bench_port.traffic import synth
+    from bpm_analysis_tpu_torch.models import analytics, classifier
+
+    spec = core.cell_spec("long-2h-b64")
+    rt = spec.config["runtime"]
+    cfg = core.program_config(rt)
+    x = np.stack([synth.quantize_int16(synth.synth_recording(i, 120))
+                  for i in chip_smoke.LONG_IDS]).astype(np.float32)
+    k_calls, n_calls, m_calls, c_calls = [], [], [], []
+    card, launches = chip_smoke.counted_run(x, cfg, {
+        (knot_kernel, "knot_quantile_anchors"): k_calls,
+        (nms_kernel, "select_by_distance"): n_calls,
+        (analytics, "compute_metrics"): m_calls,
+        (classifier, "classify_scan"): c_calls})
+    print(f"kernel launches on 4 two-hour rows: {launches}")
+    _assert_card_equals_cpu(card, chip_smoke.run_main_path(x, cfg, "cpu"), spec,
+                            chip_smoke.LONG_IDS)
+
+    assert len(k_calls) == 2
+    for a, k in k_calls:
+        assert a[0].shape[1] == rt["max_troughs"] == LONG_KNOT_SLOTS
+        got = knot_kernel.knot_quantile_anchors(*a, **k)
+        assert chip_smoke.same_values(got, kq.rolling_quantile_knots(*a, **k,
+                                                                     dtype=torch.float32))
+    widths = {a[0].shape[1]: a for a, _ in n_calls}
+    assert sorted(widths) == sorted([rt["raw_candidate_capacity"], rt["extrema_capacity"] - 2])
+    assert nms_kernel.plan(rt["extrema_capacity"] - 2).scratch
+    assert nms_kernel.plan(rt["raw_candidate_capacity"]).split == nms_kernel.MAX_SPLIT
+    for width, a in widths.items():
+        got, exp = chip_smoke.nms_pair(*a[:4])
+        assert torch.equal(got, exp), width
+    (a, k), = m_calls
+    assert metrics_kernel.LIBRARY.load().metrics_scratch_bytes(
+        a[0].shape[1], analytics.HRV_CAPACITY, 4) > 0
+    bad = chip_smoke.metrics_differ(analytics.compute_metrics(*a, **k),
+                                    analytics.compute_metrics_plain(*a, **k))
+    assert not bad, bad
+    assert [a[0].positions.shape[1] for a, _ in c_calls] == [rt["max_raw_peaks"]] * 2
+    for label, (a, k) in zip(("preliminary", "main"), c_calls):
+        got = classifier.classify_scan(*a, **k)
+        inputs = type(a[0])(*(t.cpu() for t in a[0]))
+        exp = classifier.scan_plain(inputs, *a[2:], **k)
+        got = (got[0].cpu(), None if got[1] is None else type(got[1])(
+            *(None if t is None else t.cpu() for t in got[1])))
+        assert chip_smoke.trace_error(got, exp) == 0, label
 
 
 # ---------------------------------------------------------------------------
@@ -950,7 +1049,7 @@ def test_stress_integer_fields_equal_with_the_plain_nms_on_the_card(monkeypatch)
     from bpm_analysis_tpu_torch import synth
     from bpm_analysis_tpu_torch.ops import find_peaks as fp
 
-    cfg = chip_smoke.stress_config()
+    cfg = chip_smoke.bench_config("engine-stress-302hz")
     rows = np.stack([synth._quantize_int16(synth.synth_stress_recording(s))
                      for s in range(4)]).astype(np.float32)
     before = build.launches["distance_nms"]
